@@ -2,10 +2,9 @@
 """Kernel K1: correlation planes and the masked NCC bank from rfft2 spectra
 (counterpart of ``barc4dip_tpu/ops/pallas_fftp.py``).
 
-The kernel is ``csrc/fftp_corr.cu``, CUDA C++ for ``sm_90a``. It is built
-with ``nvcc`` at first use into ``build/kernels/`` beside the package
-(keyed by a hash of the source) and bound with ``ctypes``; see the source
-for its design.
+The kernel is ``csrc/fftp_corr.cu``, CUDA C++ for ``sm_90a``, built at
+first use and bound with ``ctypes`` by :mod:`._nvcc`; see the source for
+its design.
 
 Bank layout: ``F`` holds the image spectra, (H, Wh) or (NF, H, Wh) with
 Wh = W//2 + 1. ``G`` holds the template spectra, (K, H, Wh) for a bank
@@ -27,17 +26,13 @@ f32``) and is decided from shape and dtype before any launch:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import _nvcc
 from .phasecorr import argmax2d
 
 __all__ = [
@@ -58,15 +53,8 @@ LAUNCHES: dict[str, int] = {"cols": 0, "rows": 0, "rows_ncc": 0}
 #: their shape or dtype, keyed "corr|ncc:HxW:dtype"
 PLAIN_BY_SHAPE: dict[str, int] = {}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fftp_corr.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_STEM = "fftp_corr"
 _LIB = None
-#: compiler output of the last build (registers, shared memory, spills)
-BUILD_LOG: str = ""
 
 
 def reset_counts() -> None:
@@ -80,42 +68,13 @@ def supported(shape) -> bool:
     return all(128 <= int(n) <= 4096 and (int(n) & (int(n) - 1)) == 0 for n in shape[-2:])
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        os.path.join(home, "bin", "nvcc") if home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K1 is built from source at first use")
-
-
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _LIB, BUILD_LOG
+    global _LIB
     if _LIB is not None:
         return _LIB
-    digest = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = _BUILD_DIR / f"libfftp_corr-{digest}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _nvcc.load(_STEM)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fftp_corr_error_string.argtypes = [i]
-    lib.fftp_corr_error_string.restype = ctypes.c_char_p
     lib.fftp_corr_cols.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
     lib.fftp_corr_rows.argtypes = [i, p, p, p, i, i, i, f, p]
     lib.fftp_corr_rows_ncc.argtypes = [
@@ -132,21 +91,6 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """exp(+2*pi*i*m/n), m < n/2: built in float64, rounded once to float32."""
     tw = np.exp(2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
     return torch.from_numpy(tw).to(device)
-
-
-def _check(t, name: str, dtype, shape) -> None:
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"K1: {name} must be a contiguous CUDA {dtype} tensor of shape "
-            f"{tuple(shape)}; got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}"
-        )
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.fftp_corr_error_string(rc).decode()
-        raise RuntimeError(f"K1 {what} launch failed: CUDA error {rc} ({msg})")
 
 
 def _layout(F, G):
@@ -174,15 +118,15 @@ def _use_kernel(F, s, kind: str) -> bool:
 def _cols(lib, F3, G, NF, K, shared, H, W):
     Wh = W // 2 + 1
     NB = NF * K
-    _check(F3, "F", torch.complex64, (NF, H, Wh))
-    _check(G, "G", torch.complex64, (K, H, Wh) if shared else (NF, K, H, Wh))
+    _nvcc.check_tensor(F3, "K1", "F", torch.complex64, (NF, H, Wh))
+    _nvcc.check_tensor(G, "K1", "G", torch.complex64, (K, H, Wh) if shared else (NF, K, H, Wh))
     mid = torch.empty((NB, H, Wh), dtype=torch.complex64, device=F3.device)
     rc = lib.fftp_corr_cols(
         F3.device.index, F3.data_ptr(), G.data_ptr(), mid.data_ptr(),
         _twiddles(H, F3.device).data_ptr(), H, Wh, NB, K, int(shared),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )
-    _raise_on(lib, rc, "corr_cols_inverse")
+    _nvcc.raise_on(lib, _STEM, rc, "K1 corr_cols_inverse")
     LAUNCHES["cols"] += 1
     return mid
 
@@ -196,15 +140,15 @@ def _corr_kernel(F3, G, NF, K, shared, H, W):
         _twiddles(W, F3.device).data_ptr(), H, W, NF * K, 1.0 / float(H * W),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )
-    _raise_on(lib, rc, "corr_rows_c2r")
+    _nvcc.raise_on(lib, _STEM, rc, "K1 corr_rows_c2r")
     LAUNCHES["rows"] += 1
     return out.view(NF, K, H, W)
 
 
 def _ncc_kernel(F3, G, var3, energy, NF, K, shared, H, W, vh, vw, eps):
     lib = build()
-    _check(var3, "var_full", torch.float32, (NF, H, W))
-    _check(energy, "energy", torch.float32, (K,) if shared else (NF, K))
+    _nvcc.check_tensor(var3, "K1", "var_full", torch.float32, (NF, H, W))
+    _nvcc.check_tensor(energy, "K1", "energy", torch.float32, (K,) if shared else (NF, K))
     mid = _cols(lib, F3, G, NF, K, shared, H, W)
     NB = NF * K
     maps = torch.empty((NB, H, W), dtype=torch.float32, device=F3.device)
@@ -217,7 +161,7 @@ def _ncc_kernel(F3, G, var3, energy, NF, K, shared, H, W, vh, vw, eps):
         int(vh), int(vw), rowmax.data_ptr(), rowarg.data_ptr(),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )
-    _raise_on(lib, rc, "corr_rows_c2r_ncc")
+    _nvcc.raise_on(lib, _STEM, rc, "K1 corr_rows_c2r_ncc")
     LAUNCHES["rows_ncc"] += 1
     # the first row holding the plane's maximum, then that row's first column
     iy = rowmax.argmax(-1)

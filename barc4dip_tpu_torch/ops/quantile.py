@@ -13,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["nanpercentiles_exact", "nanquantiles_exact"]
+__all__ = ["median_exact", "nanmedian_exact", "nanpercentiles_exact", "nanquantiles_exact"]
 
 
 def nanquantiles_exact(x, qs: tuple[float, ...], *, integer_range=None):
@@ -56,3 +56,13 @@ def nanpercentiles_exact(x, ps: tuple[float, ...], *, integer_range=None):
     return nanquantiles_exact(
         x, tuple(p / 100.0 for p in ps), integer_range=integer_range
     )
+
+
+def nanmedian_exact(x):
+    """Exact NaN-aware median over the last two axes."""
+    return nanquantiles_exact(x, (0.5,))[..., 0]
+
+
+def median_exact(x):
+    """Exact median over the last two axes of an input free of NaNs."""
+    return nanmedian_exact(x)

@@ -1,0 +1,127 @@
+# SPDX-License-Identifier: CECILL-2.1
+"""Flat-field (gain) correction (counterpart of
+``barc4dip_tpu/preprocessing/normalize.py``).
+
+``(I - D) / (F - D) * scale`` with stacked flats/darks mean-reduced on the
+host in float32, bad pixels (den <= eps) zeroed and optionally repaired by
+the 3x3 median (kernel K2 on CUDA), scale in {none, flat_mean,
+flat_median}, float32 output.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..ops.quantile import median_exact, nanmedian_exact
+from ..ops.rank import median_filter2d
+
+__all__ = ["flat_field_correction"]
+
+
+def _ffc(img, flat2d, dark2d, eps, *, scale: str, bad_pixel_removal: bool):
+    den = flat2d - dark2d
+    if eps is None:
+        med = median_exact(den)
+        eps_t = torch.where(med > 0, 1e-6 * med, 1e-6)
+    else:
+        eps_t = torch.tensor(eps, dtype=torch.float32, device=den.device)
+
+    bad = den <= eps_t
+    den_safe = torch.where(bad, 1.0, den)
+    out = (img - dark2d) / den_safe  # broadcasts over a leading stack axis
+
+    if scale != "none":
+        valid = ~bad
+        nvalid = valid.sum().clamp_min(1)
+        if scale == "flat_mean":
+            s = torch.where(valid, den, 0.0).sum() / nvalid
+        else:  # flat_median over the valid pixels
+            s = nanmedian_exact(torch.where(valid, den, torch.nan))
+        out = out * s
+
+    out = torch.where(bad, 0.0, out)
+    if bad_pixel_removal:
+        out = torch.where(bad, median_filter2d(out, size=3), out)
+    return out.to(torch.float32)
+
+
+def _host_f32(arr) -> np.ndarray:
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    return np.asarray(arr, dtype=np.float32)
+
+
+def flat_field_correction(
+    images,
+    *,
+    flats=None,
+    darks=None,
+    scale: str = "flat_median",
+    bad_pixel_removal: bool = False,
+    eps: float | None = None,
+    verbose: bool = False,
+    as_numpy: bool | None = None,
+):
+    """Apply flat-field correction to a 2D image or (N, H, W) stack.
+
+    Returns float32 with the input's shape. Degenerate paths match the
+    reference: no flats/darks -> copy; dark-only -> subtraction; flat-only
+    -> zero dark.
+
+    ``as_numpy=None`` keeps the result where the input lives: numpy in ->
+    numpy out, a tensor in -> a tensor out on its device (a numpy input
+    computes on the default device, cuda when present). Pass True/False to
+    force either residence.
+    """
+    t0 = time.perf_counter()
+    if scale not in {"none", "flat_mean", "flat_median"}:
+        raise ValueError(f"Invalid scale option: {scale}")
+    if images.ndim not in {2, 3}:
+        raise ValueError("images must be 2D or 3D")
+
+    device_in = isinstance(images, torch.Tensor)
+    if as_numpy is None:
+        as_numpy = not device_in
+    if device_in:
+        img = images.to(torch.float32)
+        device = images.device
+    else:
+        img = torch.from_numpy(np.array(images, dtype=np.float32))
+        device = resolve_device(None)
+
+    def _reduce_stack(arr):
+        if arr is None:
+            return None
+        if arr.ndim == 3:
+            return _host_f32(arr).mean(axis=0)
+        if arr.ndim == 2:
+            return _host_f32(arr)
+        raise ValueError("flats/darks must be 2D or 3D")
+
+    flat2d = _reduce_stack(flats)
+    dark2d = _reduce_stack(darks)
+
+    def _deliver(out):
+        if verbose:
+            print(f"> flat_field_correction | elapsed {time.perf_counter() - t0:.3f} s")
+        if as_numpy:
+            return out.detach().cpu().numpy().astype(np.float32, copy=False)
+        return out.to(device)
+
+    if flat2d is None and dark2d is None:
+        return _deliver(img.clone())
+    img = img.to(device)
+    dark = (
+        torch.zeros((), dtype=torch.float32, device=device) if dark2d is None
+        else torch.from_numpy(dark2d).to(device)
+    )
+    if flat2d is None:
+        return _deliver(img - dark)
+    out = _ffc(
+        img, torch.from_numpy(flat2d).to(device), dark, eps,
+        scale=scale, bad_pixel_removal=bool(bad_pixel_removal),
+    )
+    return _deliver(out)

@@ -8,8 +8,10 @@ Phases, one line each with its wall time:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi reports them;
-2. build: compiles kernel K1 (``barc4dip_tpu_torch/csrc/fftp_corr.cu``)
-   from this checkout into ``build/kernels/``;
+2. build: compiles kernels K1 (``csrc/fftp_corr.cu``), K2
+   (``csrc/median3x3.cu``) and K3 (``csrc/densetrack_sums.cu``) of
+   ``barc4dip_tpu_torch`` from this checkout into ``build/kernels/``, one
+   ``nvcc`` per source, all started together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
    at the main path's shapes (2048^2 frames, 29-px templates), timed with
    CUDA events (median of 10);
@@ -19,12 +21,29 @@ Phases, one line each with its wall time:
    (<= 0.05 px) and the frame 0-1 ``full``/``tiles`` leaves against a
    float64 run of the same frames on the card (rtol 1e-4) and, where the
    frames' key is in ``.bench_metric_golden.json``, against that golden;
-5. with ``--profile``: the metric step and the tracker of one chunk timed
-   apart, and the slice under torch.profiler (device time by op and kernel).
+5. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
+   a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
+   shift, as raw uint16 with flats, darks and 0.1% dead pixels;
+6. kernels-2: K2 against its plain version on the flat-field's own input
+   at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
+   plain version at Config F (33-px tiles, step 16, radius 10: 15,625
+   nodes) and on 4 frames, within 1e-5 of each output's max; timed;
+7. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
+   ``WavefrontScanPipeline`` on the card, run twice; the second run is
+   counted and timed, and one ``track_displacement_field`` at Config F is
+   timed. Checks the K2/K3 launch counts (no uncovered call), the
+   flat-field against a numpy float32 version of the formula (rtol 1e-6,
+   exact at repaired pixels), the field against ``method="fft"`` on the
+   card, the per-frame tracking medians against the known motion
+   (<= 0.05 px) and the wavefront against the parabola (relative error
+   < 0.15, curvature radius within 10%);
+8. with ``--profile``: the metric step and the tracker of one Config D
+   chunk timed apart, then the Config D slice and one XST pass under
+   torch.profiler (device busy time, device time by op and kernel).
 
 Prints the kernel table as one JSON line, then as its last line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
-Imports nothing of JAX.
+``{"ok": true, "device": {...}}`` for the one card it used. Any failed
+phase exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -45,6 +64,14 @@ RTOL = 1e-4
 TRACK_GATE_PX = 0.05
 KERNEL_ATOL_REL = 2e-5
 REPEATS = 10
+# the XST slice (Config F geometry; the flat-field half of Config E)
+XST_T, XST_SEED, XST_GRAIN_PX, XST_MEAN_COUNTS = 6, 4321, 3.0, 2000.0
+XST_PIXEL, XST_DIST, XST_R = 1e-6, 0.5, 100.0
+XST_TILE, XST_STEP, XST_RADIUS = 33, 16, 10
+XST_BATCH = 4
+K3_ATOL_REL = 1e-5
+FIELD_ATOL_PX, FIELD_ATOL_PEAK, SAME_PEAK_MIN = 5e-4, 1e-4, 0.999
+WAVEFRONT_REL, RADIUS_REL = 0.15, 0.10
 
 
 def log(msg: str) -> None:
@@ -325,9 +352,6 @@ def profile_slice(torch, dev, stack) -> None:
     from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
     from barc4dip_tpu_torch.metrics.speckles_device import speckle_device_fn
     from barc4dip_tpu_torch.metrics.tracking_batch import _grid_geometry
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     grid, *_ = tracking_grid_from_frame0(stack)
     starts, _, s = _grid_geometry(grid)
     frames = stack_fused.upload(stack[:FRAME_CHUNK], dev)
@@ -353,18 +377,273 @@ def profile_slice(torch, dev, stack) -> None:
     kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, grain_maps=False,
               verbose=False, device=dev)
     port.speckle_stack_stats(stack, **kw)
+    profiled(torch, "slice", lambda: port.speckle_stack_stats(stack, **kw))
+
+
+def profiled(torch, label: str, fn) -> None:
+    """Run ``fn`` once under torch.profiler: wall time, device busy time and
+    the device time by op and kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        port.speckle_stack_stats(stack, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profiled slice: wall {wall * 1e3:.1f} ms (profiler on), device busy "
+    log(f"profiled {label}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
         f"{dev_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} kernels and copies")
     log(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
+
+
+# -- the XST slice: flat-field with bad-pixel repair, dense tracking ---------
+
+def parabola_displacement(y, x, side: int):
+    """Displacement [px] of a spherical wavefront of radius XST_R at (y, x)."""
+    c = side / 2
+    return (y - c) * XST_DIST / XST_R, (x - c) * XST_DIST / XST_R
+
+
+def make_xst_data() -> dict:
+    """Reference and T sample frames as raw uint16 counts, with flats,
+    darks and the dead-pixel mask."""
+    from scipy.ndimage import map_coordinates
+
+    from barc4dip_tpu_torch.utils import speckle_field, spiral_motion
+
+    rng = np.random.default_rng(XST_SEED)
+    ref = speckle_field((SIDE, SIDE), grain_px=XST_GRAIN_PX, mean_counts=XST_MEAN_COUNTS,
+                        seed=rng, dtype=np.float64)
+    yy, xx = np.mgrid[0:SIDE, 0:SIDE].astype(np.float64)
+    py, px = parabola_displacement(yy, xx, SIDE)
+    sy, sx = spiral_motion(XST_T)
+    frames = [map_coordinates(ref, [yy - py - sy[t], xx - px - sx[t]], order=3, mode="reflect")
+              for t in range(XST_T)]
+    gain = rng.normal(2.0, 0.1, size=(SIDE, SIDE))
+    dead = rng.random((SIDE, SIDE)) < 1e-3
+    gain_eff = np.where(dead, 0.0, gain)
+    flats = (gain * 10000.0 + 100.0 + rng.normal(0.0, 3.0, size=(4, SIDE, SIDE))).astype(np.float32)
+    flats[:, dead] = 90.0  # flat <= dark: dead
+    darks = (100.0 + rng.normal(0.0, 2.0, size=(4, SIDE, SIDE))).astype(np.float32)
+
+    def counts(x):
+        return np.clip(np.round(x * gain_eff + 100.0), 0, 65535).astype(np.uint16)
+
+    return {"ref": counts(ref), "stack": np.stack([counts(f) for f in frames]),
+            "flats": flats, "darks": darks, "dead": dead, "shifts": (sy, sx)}
+
+
+def _median_lerp(v: np.ndarray) -> np.float32:
+    """The exact linear-interpolation median as the packages compute it."""
+    xs = np.sort(v.ravel())
+    rank = 0.5 * (xs.size - 1)
+    lo, hi = int(np.floor(rank)), int(np.ceil(rank))
+    return xs[lo] + np.float32(rank - lo) * (xs[hi] - xs[lo])
+
+
+def ffc_numpy(raw, flats, darks) -> tuple[np.ndarray, np.ndarray]:
+    """The flat-field formula in numpy float32 (scale flat_median, eps from
+    the median gain, repair by scipy's 3x3 median): (out, bad)."""
+    from scipy.ndimage import median_filter
+
+    flat = flats.mean(axis=0)
+    dark = darks.mean(axis=0)
+    den = flat - dark
+    med = _median_lerp(den)
+    eps = np.float32(1e-6) * med if med > 0 else np.float32(1e-6)
+    bad = den <= eps
+    out = (raw.astype(np.float32) - dark) / np.where(bad, np.float32(1.0), den)
+    out = out * _median_lerp(den[~bad])
+    out = np.where(bad, np.float32(0.0), out)
+    size = (1, 3, 3) if out.ndim == 3 else 3
+    return np.where(bad, median_filter(out, size=size, mode="reflect"), out), bad
+
+
+def check_kernels_xst(torch, dev, data) -> list[dict]:
+    """K2 and K3 against their plain versions at the XST slice's shapes."""
+    from barc4dip_tpu_torch.metrics.stack_fused import upload
+    from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_median, densetrack
+    from barc4dip_tpu_torch.preprocessing import flat_field_correction
+
+    rows = []
+    ff = dict(flats=data["flats"], darks=data["darks"], bad_pixel_removal=False)
+    # K2's input on the main path: the flat-field's zeroed output
+    zeroed = flat_field_correction(upload(data["stack"], dev), **ff)
+    for x in (zeroed[0].contiguous(), zeroed):
+        got = cuda_median.median3x3(x)
+        want = cuda_median.median3x3_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            n = int((got != want).sum())
+            raise AssertionError(f"K2 {tuple(x.shape)}: {n} pixels differ from the plain version")
+        ms = time_ms(torch, lambda: cuda_median.median3x3(x))
+        plain_ms = time_ms(torch, lambda: cuda_median.median3x3_plain(x))
+        log(f"K2 median3x3 {tuple(x.shape)}: exactly equal to plain, kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        rows.append({"name": f"median3x3 {'x'.join(map(str, x.shape))}", "route": "cuda",
+                     "source": "barc4dip_tpu_torch/csrc/median3x3.cu",
+                     "replaces": "barc4dip_tpu/ops/pallas_median.py:79",
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+
+    ff["bad_pixel_removal"] = True
+    ref = densetrack._zscore(flat_field_correction(upload(data["ref"], dev), **ff), 1e-9)
+    frames = densetrack._zscore(flat_field_correction(upload(data["stack"][:XST_BATCH], dev), **ff), 1e-9)
+    y0s, x0s = densetrack.grid_starts(SIDE, SIDE, XST_TILE, XST_RADIUS, XST_STEP)
+    args = (y0s, x0s, XST_TILE, XST_RADIUS)
+    for nf in (1, XST_BATCH):
+        fr = frames[:nf].contiguous()
+        got = cuda_densetrack.ncc_sums(ref, fr, *args)
+        want = cuda_densetrack.ncc_sums_plain(*cuda_densetrack.grid_windows(ref, fr, *args), XST_RADIUS)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("num", "s1", "s2"), got, want):
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            if not err <= K3_ATOL_REL * scale:
+                raise AssertionError(f"K3 {name} F={nf}: max|kernel-plain| {err:.3e} > "
+                                     f"{K3_ATOL_REL:g}*{scale:.3e}")
+            errs.append(f"{name} {err:.3e} (max {scale:.3e})")
+        ms = time_ms(torch, lambda: cuda_densetrack.ncc_sums(ref, fr, *args))
+        plain_ms = time_ms(torch, lambda: cuda_densetrack.ncc_sums_plain(
+            *cuda_densetrack.grid_windows(ref, fr, *args), XST_RADIUS))
+        nodes = len(y0s) * len(x0s)
+        log(f"K3 ncc_sums {nf} x {nodes} nodes, tile {XST_TILE}, r {XST_RADIUS}: max_abs_err "
+            f"{'; '.join(errs)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        rows.append({"name": f"ncc_sums F={nf}", "route": "cuda",
+                     "source": "barc4dip_tpu_torch/csrc/densetrack_sums.cu",
+                     "replaces": "barc4dip_tpu/ops/densetrack.py:121",
+                     "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                     "ms": ms, "plain_ms": plain_ms})
+    return rows
+
+
+def run_xst(torch, dev, data, card: str) -> dict:
+    """Flat-field and the wavefront scan on the card, run twice; the second
+    run is counted and timed."""
+    from barc4dip_tpu_torch.metrics.stack_fused import upload
+    from barc4dip_tpu_torch.models import WavefrontScanPipeline
+    from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_median
+    from barc4dip_tpu_torch.preprocessing import flat_field_correction
+    from barc4dip_tpu_torch.signal import track_displacement_field
+
+    pipe = WavefrontScanPipeline(pixel_size=XST_PIXEL, distance=XST_DIST, wavelength=1e-10,
+                                 tile_size=XST_TILE, step=XST_STEP, search_radius=XST_RADIUS)
+    ff = dict(flats=data["flats"], darks=data["darks"], bad_pixel_removal=True)
+    T = XST_T
+
+    def one_pass():
+        t0 = time.perf_counter()
+        ref_d, st_d = upload(data["ref"], dev), upload(data["stack"], dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref_c = flat_field_correction(ref_d, **ff)
+        st_c = flat_field_correction(st_d, **ff)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = pipe(st_c, ref_c)
+        t3 = time.perf_counter()
+        return out, ref_c, st_c, (t0, t1, t2, t3)
+
+    one_pass()
+    cuda_median.reset_counts()
+    cuda_densetrack.reset_counts()
+    out, ref_c, st_c, (t0, t1, t2, t3) = one_pass()
+    launches = {**cuda_median.LAUNCHES, **cuda_densetrack.LAUNCHES}
+    plain = {**cuda_median.PLAIN_BY_SHAPE, **cuda_densetrack.PLAIN_BY_SHAPE}
+    log(f"K2/K3 launches in the counted run: {json.dumps(launches)}; plain by shape: {json.dumps(plain)}")
+    if not (launches["median3x3"] > 0 and launches["ncc_sums"] > 0):
+        raise AssertionError(f"a K2/K3 kernel never launched on the XST slice: {launches}")
+    if plain:
+        raise AssertionError(f"uncovered K2/K3 calls on the XST slice: {plain}")
+
+    gy, gx = out["meta"]["grid_shape"]
+    kw = dict(tile_size=XST_TILE, step=XST_STEP, search_radius=XST_RADIUS)
+    track_displacement_field(st_c[0], ref_c, **kw)
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    field = track_displacement_field(st_c[0], ref_c, **kw)
+    track_s = time.perf_counter() - tt
+    host = []
+    for _ in range(3):  # the host part of one call: the stacked calibration means
+        th = time.perf_counter()
+        data["flats"].mean(axis=0), data["darks"].mean(axis=0)
+        host.append(time.perf_counter() - th)
+    log(f"xst flat-field: {(t2 - t1) / (T + 1) * 1e3:.3f} ms per frame on the card "
+        f"({T} frames + reference, {SIDE}^2, repair on; upload {(t1 - t0) * 1e3:.1f} ms; "
+        f"of each of the 2 calls, {np.median(host) * 1e3:.1f} ms is the host mean of "
+        f"{len(data['flats'])} flats + {len(data['darks'])} darks); {card}")
+    log(f"xst tracking: {track_s * 1e3:.3f} ms per frame = {gy * gx / track_s:.4e} ZNCCs/s "
+        f"({gy}x{gx} nodes, tile {XST_TILE}, step {XST_STEP}, r {XST_RADIUS}, "
+        f"method {field['meta']['method']}); {card}")
+    log(f"xst pipeline end to end (upload, flat-field, tracking, wavefront): {t3 - t0:.4f} s = "
+        f"{T / (t3 - t0):.3f} frames/s; tracking + wavefront {(t3 - t2) / T * 1e3:.3f} ms per "
+        f"frame; {card}")
+
+    # flat-field against the formula in numpy
+    want, bad = ffc_numpy(data["stack"], data["flats"], data["darks"])
+    got = st_c.cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    if not (np.allclose(got, want, rtol=1e-6, atol=0) and np.array_equal(got[:, bad], want[:, bad])):
+        raise AssertionError(f"flat-field vs numpy: max rel err {rel:.3e}, repaired pixels equal "
+                             f"{np.array_equal(got[:, bad], want[:, bad])}")
+    log(f"flat-field vs numpy float32 formula: max rel err {rel:.3e} (rtol 1e-6); "
+        f"{int(bad.sum())} repaired pixels per frame, exactly equal")
+
+    # the K3 path against the fft path on the card
+    peaks = {m: track_displacement_field(st_c[0], ref_c, method=m, subpixel=False, **kw)
+             for m in ("pallas", "fft")}
+    fft = track_displacement_field(st_c[0], ref_c, method="fft", **kw)
+    same = (peaks["pallas"]["dy"] == peaks["fft"]["dy"]) & (peaks["pallas"]["dx"] == peaks["fft"]["dx"])
+    frac = float(same.mean())
+    errs = {k: float(np.abs(field[k] - fft[k])[same].max()) for k in ("dy", "dx", "peak")}
+    log(f"pallas vs fft on the card: same integer peak at {int(same.sum())} of {same.size} nodes "
+        f"({frac:.5f}); there max |diff| dy {errs['dy']:.3e} dx {errs['dx']:.3e} px, "
+        f"peak {errs['peak']:.3e}")
+    if not (frac >= SAME_PEAK_MIN and errs["dy"] <= FIELD_ATOL_PX and errs["dx"] <= FIELD_ATOL_PX
+            and errs["peak"] <= FIELD_ATOL_PEAK):
+        raise AssertionError(f"pallas vs fft: {frac:.5f} same peaks, errors {errs}")
+
+    # tracking against the known motion
+    Y, X = np.meshgrid(out["y"], out["x"], indexing="ij")
+    py, px = parabola_displacement(Y, X, SIDE)
+    sy, sx = data["shifts"]
+    inner = (slice(2, -2), slice(2, -2))
+    med = [(float(np.median((out["dy"][t] - py - sy[t])[inner])),
+            float(np.median((out["dx"][t] - px - sx[t])[inner]))) for t in range(T)]
+    worst = max(abs(v) for m in med for v in m)
+    log(f"tracking vs known motion: worst per-frame median error {worst:.4f} px (gate {TRACK_GATE_PX})")
+    if not worst <= TRACK_GATE_PX:
+        raise AssertionError(f"per-frame tracking medians {med}")
+    if not all(np.isfinite(out[k]).all() for k in ("dy", "dx", "peak", "wavefront", "phase")):
+        raise AssertionError("non-finite XST outputs")
+    if out["dy"].shape != (T, gy, gx) or out["wavefront"].shape != (T, gy, gx):
+        raise AssertionError(f"XST output shapes {out['dy'].shape}, {out['wavefront'].shape}")
+
+    # the wavefront against the parabola (a uniform shift is a tilt, whose
+    # mean gradient the periodic integration drops)
+    r2 = ((Y - SIDE / 2) ** 2 + (X - SIDE / 2) ** 2) * XST_PIXEL ** 2
+    want_w = r2 / (2 * XST_R)
+    want_w = want_w - want_w.mean()
+    A = np.vstack([r2[inner].ravel(), np.ones(r2[inner].size)]).T
+    rels, fits = [], []
+    for t in range(T):
+        w = out["wavefront"][t]
+        rels.append(float(np.abs(w[inner] - want_w[inner]).max() / np.abs(want_w[inner]).max()))
+        coef, *_ = np.linalg.lstsq(A, w[inner].ravel(), rcond=None)
+        fits.append(1.0 / (2.0 * coef[0]))
+    log(f"wavefront vs parabola: worst interior relative error {max(rels):.4f} (gate {WAVEFRONT_REL}); "
+        f"fitted R {min(fits):.3f}..{max(fits):.3f} m (true {XST_R} m)")
+    if not (max(rels) < WAVEFRONT_REL and all(abs(f - XST_R) / XST_R < RADIUS_REL for f in fits)):
+        raise AssertionError(f"wavefront errors {rels}, fitted radii {fits}")
+    return {"launches": launches, "one_pass": one_pass}
+
+
+def contract_line(name: str) -> dict:
+    """The result line: this run drives one card, whatever the host holds."""
+    return {"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}
 
 
 def main() -> int:
@@ -384,12 +663,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     with Phase("build"):
-        from barc4dip_tpu_torch.ops import cuda_fftp
+        from concurrent.futures import ThreadPoolExecutor
 
-        cuda_fftp.build()
-        for line in cuda_fftp.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas: {line.strip()}")
+        from barc4dip_tpu_torch.ops import _nvcc, cuda_densetrack, cuda_fftp, cuda_median
+
+        builds = (cuda_fftp.build, cuda_median.build, cuda_densetrack.build)
+        with ThreadPoolExecutor(len(builds)) as pool:
+            for fut in [pool.submit(b) for b in builds]:
+                fut.result()
+        for stem, text in _nvcc.BUILD_LOG.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"  ptxas {stem}: {line.strip()}")
 
     with Phase("data"):
         from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
@@ -409,19 +694,35 @@ def main() -> int:
     with Phase("values"):
         check_values(dev, stack, res["out"])
 
+    with Phase("data-xst"):
+        data = make_xst_data()
+        log(f"xst: reference {data['ref'].shape}, stack {data['stack'].shape} {data['stack'].dtype}, "
+            f"{int(data['dead'].sum())} dead pixels")
+
+    with Phase("kernels-2"):
+        rows += check_kernels_xst(torch, dev, data)
+
+    with Phase("xst"):
+        xst = run_xst(torch, dev, data, card)
+
     if "--profile" in sys.argv[1:]:
         with Phase("profile"):
             profile_slice(torch, dev, stack)
+            profiled(torch, "xst pass (upload, flat-field, wavefront scan)", xst["one_pass"])
 
     for row in rows:
-        key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
-        row["launches"] = res["launches"][key]
+        if row["name"].startswith("median3x3"):
+            row["launches"] = xst["launches"]["median3x3"]
+        elif row["name"].startswith("ncc_sums"):
+            row["launches"] = xst["launches"]["ncc_sums"]
+        else:
+            key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
+            row["launches"] = res["launches"][key]
     if "jax" in sys.modules or "barc4dip_tpu" in sys.modules:
         raise RuntimeError("the port pulled in jax or the JAX package")
     log(smi)
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps(contract_line(name)))
     return 0
 
 

@@ -4,7 +4,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source ``csrc/<stem>.cu`` builds at first use into its own
 ``build/kernels/lib<stem>-<hash>.so`` beside the package, keyed by a hash
-of the source and the flags, and written with an atomic ``os.replace``.
+of the source, of every ``csrc`` header it includes (``#include "..."``,
+followed through headers) and of the flags, and written with an atomic
+``os.replace``.
 Each source exports ``const char* <stem>_error_string(int)`` and C
 functions that return ``cudaGetLastError()`` after their launch; a build
 failure or a non-zero code raises. Builds of different sources may run in
@@ -15,12 +17,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_LOG", "check_tensor", "load", "raise_on"]
+__all__ = ["BUILD_LOG", "check_tensor", "load", "raise_on", "source_digest"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -32,6 +35,7 @@ NVCC_FLAGS = (
 #: (registers, shared memory, spills); absent when the library was cached
 BUILD_LOG: dict[str, str] = {}
 _LOCKS: dict[str, threading.Lock] = {}
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 _LOCKS_GUARD = threading.Lock()
 
 
@@ -47,14 +51,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use")
 
 
+def source_digest(stem: str) -> str:
+    """Hash of ``csrc/<stem>.cu``, the ``csrc`` files it includes (and
+    those include), and the flags: the key of the built library."""
+    h = hashlib.sha256()
+    todo, seen = [f"{stem}.cu"], set()
+    while todo:
+        name = todo.pop()
+        path = CSRC / name
+        if name in seen or not path.is_file():  # a system or toolkit header
+            continue
+        seen.add(name)
+        data = path.read_bytes()
+        h.update(name.encode() + b"\0" + data)
+        todo += _INCLUDE.findall(data.decode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(stem: str) -> ctypes.CDLL:
-    """Compile ``csrc/<stem>.cu`` (once per source and flags hash) and load it."""
+    """Compile ``csrc/<stem>.cu`` (once per :func:`source_digest`) and load it."""
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(stem, threading.Lock())
     with lock:
         src = CSRC / f"{stem}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{stem}-{digest}.so"
+        so = BUILD_DIR / f"lib{stem}-{source_digest(stem)}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

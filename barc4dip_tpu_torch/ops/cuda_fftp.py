@@ -4,7 +4,11 @@
 
 The kernel is ``csrc/fftp_corr.cu``, CUDA C++ for ``sm_90a``, built at
 first use and bound with ``ctypes`` by :mod:`._nvcc`; see the source for
-its design.
+its design. Its two passes (columns, then row pairs with the optional NCC
+epilogue) run the register-resident Stockham FFT of
+``csrc/stockham_fft.cuh``, whose radix plan and float64-built stage
+twiddle tables this module makes (:func:`radix_plan`,
+:func:`stage_twiddles`).
 
 Bank layout: ``F`` holds the image spectra, (H, Wh) or (NF, H, Wh) with
 Wh = W//2 + 1. ``G`` holds the template spectra, (K, H, Wh) for a bank
@@ -43,7 +47,10 @@ __all__ = [
     "corr_from_rfft_plain",
     "ncc_masked_peaks",
     "ncc_masked_peaks_plain",
+    "radix_plan",
     "reset_counts",
+    "sqrt_threshold",
+    "stage_twiddles",
     "supported",
 ]
 
@@ -75,10 +82,10 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib = _nvcc.load(_STEM)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fftp_corr_cols.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
-    lib.fftp_corr_rows.argtypes = [i, p, p, p, i, i, i, f, p]
+    lib.fftp_corr_cols.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fftp_corr_rows.argtypes = [i, p, p, p, i, i, i, i, f, p]
     lib.fftp_corr_rows_ncc.argtypes = [
-        i, p, p, p, i, i, i, f, p, p, i, i, f, i, i, p, p, p,
+        i, p, p, p, i, i, i, i, f, p, p, i, i, f, i, i, p, p, p,
     ]
     for fn in (lib.fftp_corr_cols, lib.fftp_corr_rows, lib.fftp_corr_rows_ncc):
         fn.restype = i
@@ -86,11 +93,52 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def radix_plan(n: int) -> list[int]:
+    """Stage radices of the kernel's length-``n`` transform
+    (``csrc/stockham_fft.cuh``): 16 for every stage but the last, whose
+    radix is 2^(log2 n mod 4) when that is not 1."""
+    logn = int(n).bit_length() - 1
+    return [16] * (logn // 4) + ([1 << (logn % 4)] if logn % 4 else [])
+
+
+def stage_twiddles(n: int) -> np.ndarray:
+    """The kernel's stage twiddle table for length ``n``, complex128: for
+    each stage s >= 1 (Ns = 16^s inputs combined so far, radix R), entry
+    (q - 1)*Ns + k of its part is exp(+2*pi*i*q*k/(Ns*R)), q = 1..R-1."""
+    parts, ns = [], 1
+    for s, r in enumerate(radix_plan(n)):
+        if s:
+            q = np.arange(1, r)[:, None]
+            k = np.arange(ns)[None, :]
+            parts.append(np.exp(2j * np.pi * (q * k) / (ns * r)).ravel())
+        ns *= r
+    return np.concatenate(parts)
+
+
 @lru_cache(maxsize=16)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(+2*pi*i*m/n), m < n/2: built in float64, rounded once to float32."""
-    tw = np.exp(2j * np.pi * np.arange(n // 2) / n).astype(np.complex64)
-    return torch.from_numpy(tw).to(device)
+    """:func:`stage_twiddles`, built in float64 and rounded once to float32."""
+    return torch.from_numpy(stage_twiddles(n).astype(np.complex64)).to(device)
+
+
+@lru_cache(maxsize=16)
+def sqrt_threshold(eps: float) -> float:
+    """The float32 ``t`` with ``sqrt(x) > eps`` exactly when ``x > t``, for
+    every float32 ``x`` (sqrt rounded to nearest, as ``torch.sqrt`` is): the
+    NCC epilogue's eps guard on ``var * energy`` without a square root."""
+    e = np.float32(eps)
+    if np.isnan(e) or e == np.inf:
+        return float(e)
+    if e < 0:  # every x >= -0 passes, every x < 0 (sqrt NaN) fails
+        return float(np.nextafter(np.float32(0), np.float32(-1)))
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    with np.errstate(over="ignore"):
+        t = e * e
+        while t > 0 and np.sqrt(t) > e:
+            t = np.nextafter(t, down)
+        while t < up and np.sqrt(np.nextafter(t, up)) <= e:
+            t = np.nextafter(t, up)
+    return float(t)
 
 
 def _layout(F, G):
@@ -120,10 +168,11 @@ def _cols(lib, F3, G, NF, K, shared, H, W):
     NB = NF * K
     _nvcc.check_tensor(F3, "K1", "F", torch.complex64, (NF, H, Wh))
     _nvcc.check_tensor(G, "K1", "G", torch.complex64, (K, H, Wh) if shared else (NF, K, H, Wh))
-    mid = torch.empty((NB, H, Wh), dtype=torch.complex64, device=F3.device)
+    mid = torch.empty((NB, H, W // 2), dtype=torch.complex64, device=F3.device)
+    tw = _twiddles(H, F3.device)
     rc = lib.fftp_corr_cols(
         F3.device.index, F3.data_ptr(), G.data_ptr(), mid.data_ptr(),
-        _twiddles(H, F3.device).data_ptr(), H, Wh, NB, K, int(shared),
+        tw.data_ptr(), tw.numel(), H, W, NB, K, int(shared),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )
     _nvcc.raise_on(lib, _STEM, rc, "K1 corr_cols_inverse")
@@ -135,9 +184,10 @@ def _corr_kernel(F3, G, NF, K, shared, H, W):
     lib = build()
     mid = _cols(lib, F3, G, NF, K, shared, H, W)
     out = torch.empty((NF * K, H, W), dtype=torch.float32, device=F3.device)
+    tw = _twiddles(W, F3.device)
     rc = lib.fftp_corr_rows(
         F3.device.index, mid.data_ptr(), out.data_ptr(),
-        _twiddles(W, F3.device).data_ptr(), H, W, NF * K, 1.0 / float(H * W),
+        tw.data_ptr(), tw.numel(), H, W, NF * K, 1.0 / float(H * W),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )
     _nvcc.raise_on(lib, _STEM, rc, "K1 corr_rows_c2r")
@@ -154,10 +204,11 @@ def _ncc_kernel(F3, G, var3, energy, NF, K, shared, H, W, vh, vw, eps):
     maps = torch.empty((NB, H, W), dtype=torch.float32, device=F3.device)
     rowmax = torch.empty((NB, H), dtype=torch.float32, device=F3.device)
     rowarg = torch.empty((NB, H), dtype=torch.int32, device=F3.device)
+    tw = _twiddles(W, F3.device)
     rc = lib.fftp_corr_rows_ncc(
         F3.device.index, mid.data_ptr(), maps.data_ptr(),
-        _twiddles(W, F3.device).data_ptr(), H, W, NB, 1.0 / float(H * W),
-        var3.data_ptr(), energy.data_ptr(), K, int(shared), float(eps),
+        tw.data_ptr(), tw.numel(), H, W, NB, 1.0 / float(H * W),
+        var3.data_ptr(), energy.data_ptr(), K, int(shared), sqrt_threshold(float(eps)),
         int(vh), int(vw), rowmax.data_ptr(), rowarg.data_ptr(),
         torch.cuda.current_stream(F3.device).cuda_stream,
     )

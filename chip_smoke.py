@@ -14,7 +14,9 @@ Phases, one line each with its wall time:
    ``nvcc`` per source, all started together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
    at the main path's shapes (2048^2 frames, 29-px templates), timed with
-   CUDA events (median of 10);
+   CUDA events (median of 10 single calls), then both split by kernel: the
+   device time of each pass from 10 calls under torch.profiler, and the
+   time per call of 10 calls queued back to back (host enqueue overlapped);
 4. slice: ``speckle_stack_stats`` on a 16 x 2048^2 uint16 spiral stack
    (Config D), run twice; the second run is counted and timed. Checks the
    K1 launch counts, the tracking error against the known motion
@@ -192,6 +194,50 @@ def time_ms(torch, fn) -> float:
     return float(np.median(times))
 
 
+def queued_ms(torch, fn) -> float:
+    """Device time per call of REPEATS calls queued back to back (CUDA
+    events around the run): the host's enqueue overlaps the device."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPEATS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / REPEATS
+
+
+def kernel_ms(torch, fn) -> dict:
+    """Device time per call (ms) of each kernel ``fn`` launches, summed by
+    kernel name over REPEATS calls under torch.profiler."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation or not e.self_device_time_total:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:60]
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / REPEATS / 1e3
+    return out
+
+
+def log_device_split(torch, label: str, fn) -> None:
+    split = kernel_ms(torch, fn)
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+    log(f"  {label}: queued {queued_ms(torch, fn):.4f} ms/call; device {sum(split.values()):.4f} "
+        f"ms/call = {parts}")
+
+
 def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
     """K1a and K1b against their plain versions at the main path's shapes."""
     from barc4dip_tpu_torch.metrics.stack_fused import upload
@@ -218,6 +264,8 @@ def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
         plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
         log(f"K1a corr_from_rfft planes={nf} {H}x{W}: max_abs_err {err:.3e} "
             f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
+        log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
         rows.append({"name": f"corr_from_rfft B={nf}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
@@ -250,6 +298,8 @@ def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
         plain_ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
         log(f"K1b ncc_masked_peaks planes={9 * nf} {H}x{W} tpl {s}px: max_abs_err {err:.3e} "
             f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
+        log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
         rows.append({"name": f"ncc_masked_peaks B={9 * nf}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:398",

@@ -72,6 +72,126 @@ def test_ncc_masked_peaks_matches_plain(dev, side, nf, shared):
     assert torch.equal(iy, piy) and torch.equal(ix, pix)
 
 
+# every power of two from 128 to 4096 on each axis at least once
+RADIX_SHAPES = [(128, 4096), (4096, 128), (2048, 2048), (256, 1024), (1024, 256), (512, 512),
+                (128, 128)]
+
+
+def _random_spectra(h, w, nf, k, shared, seed):
+    """Random complex half spectra (not Hermitian where rfft2 would make
+    them so), as complex128 numpy and complex64 tensors' sources."""
+    rng = np.random.default_rng(seed)
+    wh = w // 2 + 1
+
+    def c(*shape):
+        return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+    F = c(nf, h, wh)
+    G = c(k, h, wh) if shared else c(nf, k, h, wh)
+    return F, G
+
+
+def _corr_ref(F, G, h, w):
+    """numpy float64 irfft2(F * conj(G)): the contract, for any spectra."""
+    G = G.astype(np.complex128)
+    prod = F.astype(np.complex128)[:, None] * np.conj(G if G.ndim == 4 else G[None])
+    return np.fft.irfft2(prod, s=(h, w))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("h, w", RADIX_SHAPES)
+def test_corr_random_spectra_vs_numpy(dev, h, w, shared):
+    nf = 1 if h * w >= 2048 * 2048 else 2
+    F, G = _random_spectra(h, w, nf, 2, shared, seed=h + w)
+    cuda_fftp.reset_counts()
+    got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0}
+    want = _corr_ref(F, G, h, w)
+    got = got.cpu().numpy()
+    assert got.shape == want.shape == (nf, 2, h, w)
+    assert np.abs(got - want).max() <= ATOL_REL * np.abs(want).max()
+
+
+def _ncc_ref(F, G, var, en, h, w, vh, vw, eps):
+    corr = _corr_ref(F, G, h, w)
+    en = en.astype(np.float64)
+    denom = np.sqrt(var.astype(np.float64)[:, None] * (en if en.ndim == 2 else en[None])[..., None, None])
+    with np.errstate(invalid="ignore"):
+        safe = denom > eps
+    ncc = np.where(safe, corr / np.where(safe, denom, 1.0), 0.0)
+    valid = (np.arange(h) < vh)[:, None] & (np.arange(w) < vw)[None, :]
+    maps = np.where(valid, ncc, -np.inf)
+    flat = maps.reshape(maps.shape[:2] + (-1,)).argmax(-1)  # first NaN, else first max
+    return maps, flat // w, flat % w
+
+
+def _check_ncc(dev, F, G, var, en, h, w, vh, vw, eps=1e-9):
+    cuda_fftp.reset_counts()
+    args = [torch.from_numpy(a).to(dev) for a in (F, G, var, en)]
+    maps, iy, ix = cuda_fftp.ncc_masked_peaks(*args, valid_hw=(vh, vw), eps=eps, s=(h, w))
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 0, "rows_ncc": 1}
+    want, wy, wx = _ncc_ref(F, G, var, en, h, w, vh, vw, eps)
+    maps = maps.cpu().numpy()
+    for pred in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(pred(maps), pred(want))
+    fin = np.isfinite(want)
+    if fin.any():
+        assert np.abs(maps[fin] - want[fin]).max() <= ATOL_REL * np.abs(want[fin]).max()
+    np.testing.assert_array_equal(iy.cpu().numpy(), wy)
+    np.testing.assert_array_equal(ix.cpu().numpy(), wx)
+    ai, aj = argmax2d(torch.from_numpy(maps))
+    np.testing.assert_array_equal(ai.numpy(), wy)
+    np.testing.assert_array_equal(aj.numpy(), wx)
+    return maps
+
+
+def _ncc_inputs(h, w, nf, k, shared, seed):
+    F, G = _random_spectra(h, w, nf, k, shared, seed)
+    rng = np.random.default_rng(seed + 1)
+    var = rng.uniform(0.5, 2.0, size=(nf, h, w)).astype(np.float32)
+    var[:, ::7, ::5] = 0.0  # denominator <= eps: the map reads 0 there
+    en = rng.uniform(0.5, 2.0, size=(k,) if shared else (nf, k)).astype(np.float32)
+    return F, G, var, en
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("h, w", RADIX_SHAPES)
+def test_ncc_random_spectra_vs_numpy(dev, h, w, shared):
+    nf = 1 if h * w >= 2048 * 2048 else 2
+    F, G, var, en = _ncc_inputs(h, w, nf, 3, shared, seed=3 * h + w)
+    _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
+
+
+@pytest.mark.parametrize("h, w", [(256, 512), (2048, 2048)])
+def test_ncc_nan_spectra_rank_highest(dev, h, w):
+    """NaN in one image's spectrum makes its planes NaN wherever the
+    denominator is > eps: the peak is the first such entry, not the -inf
+    mask and not the zeros."""
+    F, G, var, en = _ncc_inputs(h, w, 2, 3, True, seed=5)
+    F[1, 3, 5] = np.nan
+    var[1, 0, :4] = 0.0
+    maps = _check_ncc(dev, F, G, var, en, h, w, h - 30, w - 30)
+    assert np.isnan(maps[1]).any() and not np.isnan(maps[0]).any()
+
+
+def test_ncc_nan_variance_reads_zero(dev):
+    h, w = 512, 256
+    F, G, var, en = _ncc_inputs(h, w, 2, 2, False, seed=6)
+    var[0, 10:20, 30:40] = np.nan
+    maps = _check_ncc(dev, F, G, var, en, h, w, h - 3, w - 3)
+    assert (maps[0, :, 10:20, 30:40] == 0.0).all()
+
+
+@pytest.mark.parametrize("vh, vw", [(1, 64), (5, 256), (0, 256), (128, 0)])
+def test_ncc_masked_rows(dev, vh, vw):
+    """Rows at or past vh are -inf throughout; a fully masked map still
+    gives a valid index, (0, 0) as argmax2d does."""
+    h, w = 128, 256
+    F, G, var, en = _ncc_inputs(h, w, 2, 3, True, seed=7)
+    maps = _check_ncc(dev, F, G, var, en, h, w, vh, vw)
+    assert np.isneginf(maps[:, :, vh:]).all()
+
+
 def test_uncovered_shape_takes_plain_and_is_counted(dev):
     a = _frames(dev, 1, 256)[:, :228, :228]
     F = torch.fft.rfft2(a - a.mean())

@@ -141,3 +141,173 @@ def test_cpu_tensors_never_touch_the_kernel(rng):
     cuda_fftp.corr_from_rfft(F, F[:, None], s=(256, 256))
     assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}
     assert cuda_fftp.PLAIN_BY_SHAPE == {}
+
+
+# -- the kernel's radix plan, run in numpy float64 ---------------------------
+# These mirror csrc/stockham_fft.cuh and the loads of csrc/fftp_corr.cu index
+# for index (thread t holds v[t, i] = x[t + i*T]), with the stage twiddles
+# cuda_fftp builds for the card, so the index algebra is checked where there
+# is no nvcc.
+
+def _register_dft(a):
+    """The kernel's in-register R-point inverse DFT of a[..., q], q < R:
+    radix-2 steps after a bit reversal, twiddles exp(+2*pi*i*k/16)."""
+    R = a.shape[-1]
+    bits = R.bit_length() - 1
+    a = a[..., [int(f"{i:0{bits}b}"[::-1], 2) for i in range(R)]].copy()
+    half = 1
+    while half < R:
+        for i in range(0, R, 2 * half):
+            for k in range(half):
+                u = a[..., i + k].copy()
+                w = a[..., i + k + half] * np.exp(2j * np.pi * k * (8 // half) / 16)
+                a[..., i + k] = u + w
+                a[..., i + k + half] = u - w
+        half *= 2
+    return a
+
+
+def _stages(v, n):
+    """stockham::run from the register state v (..., T, 16) of stage 0's
+    input to that of the output: out[t + i*T] = v[t, i]."""
+    T = n // 16
+    t = np.arange(T)
+    slots = t[:, None] + np.arange(16)[None, :] * T
+    tw = cuda_fftp.stage_twiddles(n)
+    ns, off = 1, 0
+    v = v.copy()
+    for s, r in enumerate(cuda_fftp.radix_plan(n)):
+        M = 16 // r
+        for m in range(M):
+            if s:
+                k = (t + m * T) % ns
+                for q in range(1, r):
+                    v[..., m + q * M] *= tw[off + (q - 1) * ns + k]
+            cols = m + M * np.arange(r)
+            v[..., cols] = _register_dft(v[..., cols])
+        if s:
+            off += (r - 1) * ns
+        if ns * r < n:  # the exchange through shared memory
+            y = np.empty(v.shape[:-2] + (n,), complex)
+            for m in range(M):
+                j = t + m * T
+                base = (j // ns) * ns * r + j % ns
+                for q in range(r):
+                    y[..., base + q * ns] = v[..., m + q * M]
+            v = y[..., slots]
+        ns *= r
+    assert off == tw.size
+    return v
+
+
+def _unload(v, n):
+    T = n // 16
+    out = np.empty(v.shape[:-2] + (n,), complex)
+    out[..., np.arange(T)[:, None] + np.arange(16)[None, :] * T] = v
+    return out
+
+
+def _kernel_irfft2(X, H, W):
+    """Passes 1 and 2 of the kernel on the product spectrum X (H, W/2+1)."""
+    Wq, TH, TW = W // 2, H // 16, W // 16
+    m = np.arange(H)
+    cols = X[:, :Wq].copy()  # slot 0 packs the Hermitian parts of columns 0, W/2
+    a, c = X[:, 0], X[:, Wq]
+    cols[:, 0] = 0.5 * (a + np.conj(a[-m])) + 1j * 0.5 * (c + np.conj(c[-m]))
+    v = cols.T[:, np.arange(TH)[:, None] + np.arange(16)[None, :] * TH]
+    mid = _unload(_stages(v, H), H).T  # (H, W/2)
+
+    t, i = np.arange(TW)[:, None], np.arange(16)[None, :]
+    lo = i < 8
+    dc, nyq = (i == 0) & (t == 0), (i == 8) & (t == 0)
+    idx = np.where(nyq, 0, np.where(lo, t + i * TW, (16 - i) * TW - t))
+
+    def rebuild(rows):
+        x = rows[:, idx]
+        return np.where(dc, x.real, np.where(nyq, x.imag, np.where(lo, x, np.conj(x))))
+
+    z = _unload(_stages(rebuild(mid[0::2]) + 1j * rebuild(mid[1::2]), W), W) / (H * W)
+    out = np.empty((H, W))
+    out[0::2], out[1::2] = z.real, z.imag
+    return out
+
+
+# stockham::tw_count of the CUDA source, which refuses a table of another length
+TW_COUNT = {128: 112, 256: 240, 512: 496, 1024: 1008, 2048: 2032, 4096: 4080}
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+def test_radix_plan_matches_ifft(rng, n):
+    assert np.prod(cuda_fftp.radix_plan(n)) == n
+    assert cuda_fftp.stage_twiddles(n).shape == (TW_COUNT[n],)
+    x = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
+    T = n // 16
+    got = _unload(_stages(x[:, np.arange(T)[:, None] + np.arange(16)[None, :] * T], n), n)
+    want = np.fft.ifft(x) * n
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("h, w", [(128, 128), (256, 512), (512, 256), (128, 4096), (4096, 128),
+                                  (1024, 2048)])
+def test_kernel_passes_match_numpy_irfft2(rng, h, w):
+    """Random complex half spectra, not Hermitian where rfft2 would make
+    them so: numpy drops the imaginary parts of the DC and Nyquist bins
+    after the column inverse, and so must the packed slot 0."""
+    X = rng.normal(size=(h, w // 2 + 1)) + 1j * rng.normal(size=(h, w // 2 + 1))
+    want = np.fft.irfft2(X, s=(h, w))
+    np.testing.assert_allclose(_kernel_irfft2(X, h, w), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_build_key_follows_included_headers(tmp_path, monkeypatch):
+    from barc4dip_tpu_torch.ops import _nvcc
+
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "core.cuh"\n')
+    (tmp_path / "core.cuh").write_text('#pragma once\n  #  include "inner.cuh"\nint a;\n')
+    (tmp_path / "inner.cuh").write_text("int b;\n")
+    (tmp_path / "other.cuh").write_text("int c;\n")
+    d0 = _nvcc.source_digest("k")
+    (tmp_path / "other.cuh").write_text("int c2;\n")
+    assert _nvcc.source_digest("k") == d0
+    (tmp_path / "inner.cuh").write_text("int b2;\n")
+    d1 = _nvcc.source_digest("k")
+    assert d1 != d0
+    (tmp_path / "core.cuh").write_text('#pragma once\n#include "inner.cuh"\nint a2;\n')
+    assert _nvcc.source_digest("k") not in (d0, d1)
+    monkeypatch.setattr(_nvcc, "NVCC_FLAGS", _nvcc.NVCC_FLAGS + ("-lineinfo",))
+    assert len({_nvcc.source_digest("k"), d0, d1}) == 3
+
+
+def test_k1_build_key_covers_its_fft_core(tmp_path, monkeypatch):
+    import shutil
+
+    from barc4dip_tpu_torch.ops import _nvcc
+
+    for src in _nvcc.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_nvcc, "CSRC", tmp_path)
+    d0 = _nvcc.source_digest("fftp_corr")
+    with open(tmp_path / "stockham_fft.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert _nvcc.source_digest("fftp_corr") != d0
+
+
+@pytest.mark.parametrize("eps", [1e-9, 1e-6, 0.5, 1.0, 3.0, 7e-3, 0.0, 1e-40, -1.0, 3e38,
+                                 float("inf")])
+def test_sqrt_threshold_is_exact(rng, eps):
+    """The kernel's guard x > t against the plain version's sqrt(x) > eps,
+    on float32 x around the boundary and across the range."""
+    t = np.float32(cuda_fftp.sqrt_threshold(eps))
+    e = np.float32(eps)
+    with np.errstate(invalid="ignore", over="ignore", under="ignore"):
+        near = [t, e * e]  # and three float32 steps either side of t
+        for step in (np.float32(np.inf), np.float32(-np.inf)):
+            y = t
+            for _ in range(3):
+                y = np.nextafter(y, step)
+                near.append(y)
+        scale = np.float32(10.0) ** rng.integers(-45, 39, 2000).astype(np.float32)
+        x = np.concatenate([np.array(near, np.float32),
+                            rng.uniform(-1, 1, 2000).astype(np.float32) * scale,
+                            np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45], np.float32)])
+        np.testing.assert_array_equal(x > t, np.sqrt(x) > e)

@@ -19,8 +19,9 @@ Dispatch is decided from device, geometry and dtype before any launch:
 
 - CPU tensors take the plain PyTorch version (:func:`grid_windows` +
   :func:`ncc_sums_plain`);
-- CUDA float32 images with ``(s^2 + w^2) * 4`` bytes within the kernel's
-  shared memory launch the kernel; a build or launch failure raises;
+- CUDA float32 images of a geometry :func:`supported` accepts (the block's
+  threads and shared memory, :func:`layout`) launch the kernel; a build or
+  launch failure raises;
 - any other CUDA call takes the plain version and is counted in
   :data:`PLAIN_BY_SHAPE`.
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,13 +42,17 @@ from .ncc import window_sums
 
 __all__ = [
     "LAUNCHES",
+    "Layout",
     "PLAIN_BY_SHAPE",
     "build",
     "grid_patches",
     "grid_windows",
+    "launch_layout",
+    "layout",
     "ncc_sums",
     "ncc_sums_plain",
     "reset_counts",
+    "strip_tasks",
     "supported",
 ]
 
@@ -57,9 +63,16 @@ PLAIN_BY_SHAPE: dict[str, int] = {}
 
 _STEM = "densetrack_sums"
 _LIB = None
-#: dynamic shared memory the kernel may use: the 48 KB static limit less
-#: its 128-byte reduction scratch
-_SMEM_BYTES = 48 * 1024 - 128
+#: offsets a thread accumulates along a window row (the kernel's kStrip)
+STRIP = 7
+#: window values a sliding strip keeps in registers (the kernel's kRing)
+RING = 12
+#: parts the numerator's tile rows are split into where the block fits
+KSPLIT = 2
+#: dynamic shared memory a block may opt in to on Hopper (227 KB), less
+#: the kernel's 128-byte static reduction scratch
+_SMEM_BYTES = 232448 - 128
+_MAX_THREADS = 256
 
 
 def reset_counts() -> None:
@@ -68,10 +81,77 @@ def reset_counts() -> None:
     PLAIN_BY_SHAPE.clear()
 
 
+class Layout(NamedTuple):
+    """The kernel's block for a geometry (``csrc/densetrack_sums.cu``)."""
+
+    #: strips of STRIP offsets a row of offsets takes, and their width
+    nstrip: int
+    lp: int
+    #: tile row pitch (zero-padded to a multiple of RING), window row pitch
+    sp: int
+    wp: int
+    #: numerator threads a part (one a strip, whole warps), parts the tile
+    #: rows are split into (their sums meet in shared memory)
+    tpp: int
+    ksplit: int
+    #: threads a block and its shared memory in bytes (two tiles, the
+    #: window, two row-sum planes, numerator parts)
+    threads: int
+    smem: int
+
+
+def strip_tasks(L: int) -> tuple[np.ndarray, np.ndarray]:
+    """(u, first v) of each numerator strip of a part, by thread: row u =
+    t % L of the offsets, columns 7 * (t // L) onwards."""
+    t = np.arange(L * -(-L // STRIP))
+    return t % L, STRIP * (t // L)
+
+
+def _bank_conflicts(s: int, L: int, tpp: int, ksplit: int, wp: int) -> int:
+    """Shared-memory wavefronts of one numerator window load summed over
+    the block's warps: distinct addresses per bank, at most, a warp."""
+    u, v0 = strip_tasks(L)
+    rows = -(-s // ksplit)
+    total = 0
+    for k in range(ksplit):
+        addr = (u + k * rows) * wp + v0
+        for q in range(0, tpp, 32):
+            a = np.unique(addr[q:q + 32])
+            total += int(np.bincount(a % 32, minlength=32).max()) if a.size else 0
+    return total
+
+
+@lru_cache(maxsize=64)
+def layout(s: int, r: int, ksplit: int = KSPLIT) -> Layout:
+    """The kernel's block for tile side ``s`` and radius ``r``, with the
+    numerator's tile rows in ``ksplit`` parts. The window pitch is the one
+    among the 32 from the least the strips read with the fewest bank
+    conflicts, the smallest of those."""
+    L, w = 2 * r + 1, s + 2 * r
+    nstrip = -(-L // STRIP)
+    lp = nstrip * STRIP
+    sp = -(-s // RING) * RING
+    tpp = -(-L * nstrip // 32) * 32
+    wmin = lp + sp - 1
+    wp = min(range(wmin, wmin + 32), key=lambda p: (_bank_conflicts(s, L, tpp, ksplit, p), p))
+    smem = 4 * (2 * s * sp + w * wp + 2 * w * L + (ksplit - 1) * L * L)
+    return Layout(nstrip, lp, sp, wp, tpp, ksplit, ksplit * tpp, smem)
+
+
+def _fits(lay: Layout) -> bool:
+    return lay.threads <= _MAX_THREADS and lay.smem <= _SMEM_BYTES
+
+
+def launch_layout(s: int, r: int) -> Layout:
+    """The layout a launch uses: the numerator in KSPLIT parts where that
+    block fits, else in one."""
+    lay = layout(s, r)
+    return lay if _fits(lay) else layout(s, r, 1)
+
+
 def supported(s: int, r: int) -> bool:
-    """Geometry the kernel covers: tile and window fit its shared memory."""
-    w = s + 2 * r
-    return (s * s + w * w) * 4 <= _SMEM_BYTES
+    """Geometry the kernel covers: its block's threads and shared memory fit."""
+    return _fits(launch_layout(int(s), int(r)))
 
 
 def build() -> ctypes.CDLL:
@@ -80,7 +160,7 @@ def build() -> ctypes.CDLL:
     if _LIB is None:
         lib = _nvcc.load(_STEM)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.densetrack_sums.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+        lib.densetrack_sums.argtypes = [i, p, p, p, p] + [i] * 13 + [p, p, p, p]
         lib.densetrack_sums.restype = i
         _LIB = lib
     return _LIB
@@ -155,16 +235,16 @@ def ncc_sums(ref, frames, y0s, x0s, s: int, r: int):
     lib = build()
     _nvcc.check_tensor(ref, "K3", "ref", torch.float32, (H, W))
     _nvcc.check_tensor(frames3, "K3", "frames", torch.float32, (Fn, H, W))
-    if Fn > 65535:
-        raise ValueError(f"K3: at most 65535 frames per launch; got {Fn}")
     ty, tx = _starts_on(tuple(int(v) for v in y0), tuple(int(v) for v in x0), ref.device)
     gy, gx = len(y0), len(x0)
     L = 2 * r + 1
+    lay = launch_layout(s, r)
     num, s1, s2 = (torch.empty((Fn * gy * gx, L, L), dtype=torch.float32, device=ref.device)
                    for _ in range(3))
     rc = lib.densetrack_sums(
         ref.device.index, ref.data_ptr(), frames3.data_ptr(), ty.data_ptr(), tx.data_ptr(),
-        Fn, H, W, gy, gx, s, r, num.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+        Fn, H, W, gy, gx, s, r, lay.sp, lay.wp, lay.tpp, lay.ksplit, lay.threads, lay.smem,
+        num.data_ptr(), s1.data_ptr(), s2.data_ptr(),
         torch.cuda.current_stream(ref.device).cuda_stream,
     )
     _nvcc.raise_on(lib, _STEM, rc, "K3 densetrack_sums")

@@ -14,9 +14,11 @@ Phases, one line each with its wall time:
    ``nvcc`` per source, all started together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
    at the main path's shapes (2048^2 frames, 29-px templates), timed with
-   CUDA events (median of 10 single calls), then both split by kernel: the
-   device time of each pass from 10 calls under torch.profiler, and the
-   time per call of 10 calls queued back to back (host enqueue overlapped);
+   CUDA events (median of 10 single calls) beside the library call (cuFFT's
+   irfft2 of the products formed beforehand), then all three split by
+   kernel: the device time of each pass from 10 calls under torch.profiler,
+   and the time per call of 10 calls queued back to back (host enqueue
+   overlapped);
 4. slice: ``speckle_stack_stats`` on a 16 x 2048^2 uint16 spiral stack
    (Config D), run twice; the second run is counted and timed. Checks the
    K1 launch counts, the tracking error against the known motion
@@ -29,7 +31,12 @@ Phases, one line each with its wall time:
 6. kernels-2: K2 against its plain version on the flat-field's own input
    at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
    plain version at Config F (33-px tiles, step 16, radius 10: 15,625
-   nodes) and on 4 frames, within 1e-5 of each output's max; timed;
+   nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
+   and s2 (sliding box sums) against float64 sums of the same windows at
+   the same tolerance; timed as K1 is (K2's single-call event time is
+   mostly the wrapper's host cost; its device time and queued time per call
+   stand beside it), K3 beside the library call for its numerator (one
+   grouped cuDNN ``conv2d``, TF32 off);
 7. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
    ``WavefrontScanPipeline`` on the card, run twice; the second run is
    counted and timed, and one ``track_displacement_field`` at Config F is
@@ -43,9 +50,18 @@ Phases, one line each with its wall time:
    chunk timed apart, then the Config D slice and one XST pass under
    torch.profiler (device busy time, device time by op and kernel).
 
-Prints the kernel table as one JSON line, then as its last line
-``{"ok": true, "device": {...}}`` for the one card it used. Any failed
-phase exits non-zero. Imports nothing of JAX.
+Every time printed names the card and its power limit (the nvidia-smi
+line, printed first and again before the result); the kernel phases also
+print the card's SM clock, power draw and temperature as they start and
+end. Prints the kernel table
+as one JSON line: a row per kernel and shape with ``max_abs_err``,
+``ms`` (event median), ``plain_ms``, ``device_ms`` (torch.profiler),
+``bound_ms`` and ``bound_by`` (the larger of the bytes each input and
+output must move at 3.35 TB/s and the float32 operations these inputs need
+at 67 TFLOP/s, the published H100 SXM peaks), ``library_ms`` (null for K2,
+which has no one-call equivalent) and ``launches`` (the counted run of its
+path). Then, as its last line, ``{"ok": true, "device": {...}}`` for the
+one card it used. Any failed phase exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -74,6 +90,9 @@ XST_BATCH = 4
 K3_ATOL_REL = 1e-5
 FIELD_ATOL_PX, FIELD_ATOL_PEAK, SAME_PEAK_MIN = 5e-4, 1e-4, 0.999
 WAVEFRONT_REL, RADIUS_REL = 0.15, 0.10
+# published H100 SXM peaks at 700 W: device memory, float32 outside the
+# tensor cores
+PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
 
 def log(msg: str) -> None:
@@ -231,14 +250,51 @@ def kernel_ms(torch, fn) -> dict:
     return out
 
 
-def log_device_split(torch, label: str, fn) -> None:
+def log_device_split(torch, label: str, fn) -> float:
+    """Log the queued time per call and the device time per call by kernel;
+    return the device time per call (ms)."""
     split = kernel_ms(torch, fn)
+    device = sum(split.values())
     parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
-    log(f"  {label}: queued {queued_ms(torch, fn):.4f} ms/call; device {sum(split.values()):.4f} "
+    log(f"  {label}: queued {queued_ms(torch, fn):.4f} ms/call; device {device:.4f} "
         f"ms/call = {parts}")
+    return device
 
 
-def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
+def card_state() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now: a
+    clock below its maximum (power or heat) slows every kernel alike."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the peak rate."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_F32_FLOP_S * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors`` (an input passed
+    twice, as an autocorrelation's spectrum is, is read once)."""
+    seen = {}
+    for t in tensors:
+        seen[(t.data_ptr(), t.numel() * t.element_size())] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one real inverse FFT of n points: 2.5 n log2 n."""
+    return 2.5 * n * np.log2(n)
+
+
+def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     """K1a and K1b against their plain versions at the main path's shapes."""
     from barc4dip_tpu_torch.metrics.stack_fused import upload
     from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
@@ -248,6 +304,7 @@ def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
     frames = upload(stack[:FRAME_CHUNK], dev)
     H, W = frames.shape[-2:]
     rows = []
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
 
     # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core)
     for nf in (1, FRAME_CHUNK):
@@ -262,14 +319,21 @@ def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
             raise AssertionError(f"K1a B={nf}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
         ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
         plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
+        # the library call: cuFFT's irfft2 of the product formed beforehand
+        prod = Fa[:, None] * Fa[:, None].conj()
+        library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
         log(f"K1a corr_from_rfft planes={nf} {H}x{W}: max_abs_err {err:.3e} "
-            f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
+            f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library irfft2 {library_ms:.3f} ms; {card}")
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
         log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
+        log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+        flops = nf * (6 * Fa.shape[-2] * Fa.shape[-1] + fft_flops(H * W))
         rows.append({"name": f"corr_from_rfft B={nf}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                     **bound(nbytes(Fa, Fa[:, None], got), flops), "library_ms": library_ms})
 
     # K1b: the tracker's NCC bank (ncc.ncc_bank_masked_peaks), frame-0
     # templates against later frames
@@ -296,14 +360,24 @@ def check_kernels(torch, dev, stack, starts, s) -> list[dict]:
             raise AssertionError("K1b: kernel peaks differ from the plain path's")
         ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
         plain_ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
+        # the library call: cuFFT's irfft2 of the 9 products a frame, formed
+        # beforehand (the NCC epilogue and the peak are not in it)
+        prod = args[0][:, None] * args[1][None].conj()
+        library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
         log(f"K1b ncc_masked_peaks planes={9 * nf} {H}x{W} tpl {s}px: max_abs_err {err:.3e} "
-            f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
+            f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library irfft2 {library_ms:.3f} ms; {card}")
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
         log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
+        log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+        planes = prod.shape[0] * prod.shape[1]
+        flops = planes * (6 * prod.shape[-2] * prod.shape[-1] + fft_flops(H * W) + 4 * H * W)
         rows.append({"name": f"ncc_masked_peaks B={9 * nf}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:398",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                     **bound(nbytes(*args, maps, iy, ix), flops), "library_ms": library_ms})
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
     return rows
 
 
@@ -513,13 +587,15 @@ def ffc_numpy(raw, flats, darks) -> tuple[np.ndarray, np.ndarray]:
     return np.where(bad, median_filter(out, size=size, mode="reflect"), out), bad
 
 
-def check_kernels_xst(torch, dev, data) -> list[dict]:
+def check_kernels_xst(torch, dev, data, card: str) -> list[dict]:
     """K2 and K3 against their plain versions at the XST slice's shapes."""
     from barc4dip_tpu_torch.metrics.stack_fused import upload
     from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_median, densetrack
+    from barc4dip_tpu_torch.ops.ncc import window_sums
     from barc4dip_tpu_torch.preprocessing import flat_field_correction
 
     rows = []
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
     ff = dict(flats=data["flats"], darks=data["darks"], bad_pixel_removal=False)
     # K2's input on the main path: the flat-field's zeroed output
     zeroed = flat_field_correction(upload(data["stack"], dev), **ff)
@@ -533,11 +609,15 @@ def check_kernels_xst(torch, dev, data) -> list[dict]:
         ms = time_ms(torch, lambda: cuda_median.median3x3(x))
         plain_ms = time_ms(torch, lambda: cuda_median.median3x3_plain(x))
         log(f"K2 median3x3 {tuple(x.shape)}: exactly equal to plain, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms; {card}")
+        # single-call event time = host enqueue + device; the split shows each
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_median.median3x3(x))
+        # 19 compare-exchanges (two operations each) per output pixel
         rows.append({"name": f"median3x3 {'x'.join(map(str, x.shape))}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/median3x3.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_median.py:79",
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                     **bound(nbytes(x, got), 38 * x.numel()), "library_ms": None})
 
     ff["bad_pixel_removal"] = True
     ref = densetrack._zscore(flat_field_correction(upload(data["ref"], dev), **ff), 1e-9)
@@ -556,17 +636,47 @@ def check_kernels_xst(torch, dev, data) -> list[dict]:
                 raise AssertionError(f"K3 {name} F={nf}: max|kernel-plain| {err:.3e} > "
                                      f"{K3_ATOL_REL:g}*{scale:.3e}")
             errs.append(f"{name} {err:.3e} (max {scale:.3e})")
+        # the kernel's s1 and s2 slide along rows and columns: against
+        # float64 sums of the same windows
+        w64 = cuda_densetrack.grid_windows(ref.double(), fr.double(), *args)[1]
+        for name, g, w in zip(("s1", "s2"), got[1:], (window_sums(w64, XST_TILE, XST_TILE),
+                                                      window_sums(w64 * w64, XST_TILE, XST_TILE))):
+            err, scale = float((g.double() - w).abs().max()), float(w.abs().max())
+            if not err <= K3_ATOL_REL * scale:
+                raise AssertionError(f"K3 {name} F={nf}: max|kernel-float64| {err:.3e} > "
+                                     f"{K3_ATOL_REL:g}*{scale:.3e}")
+            errs.append(f"{name} vs float64 {err:.3e} ({err / scale:.2e} of max)")
+        del w64
         ms = time_ms(torch, lambda: cuda_densetrack.ncc_sums(ref, fr, *args))
         plain_ms = time_ms(torch, lambda: cuda_densetrack.ncc_sums_plain(
             *cuda_densetrack.grid_windows(ref, fr, *args), XST_RADIUS))
         nodes = len(y0s) * len(x0s)
+        # the library call: the numerator alone as the `conv` method's one
+        # cuDNN call (TF32 off), on windows extracted beforehand
+        t, wins = cuda_densetrack.grid_windows(ref, fr, *args)
+        wins = wins.reshape(nf, nodes, *wins.shape[-2:])
+
+        def conv():
+            return torch.nn.functional.conv2d(wins, t[:, None], groups=nodes)
+
+        library_ms = time_ms(torch, conv)
+        lib_err = float((conv().reshape(want[0].shape) - want[0]).abs().max())
         log(f"K3 ncc_sums {nf} x {nodes} nodes, tile {XST_TILE}, r {XST_RADIUS}: max_abs_err "
-            f"{'; '.join(errs)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"{'; '.join(errs)}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library conv2d "
+            f"(numerator only, max|conv-plain| {lib_err:.3e}) {library_ms:.3f} ms; {card}")
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_densetrack.ncc_sums(ref, fr, *args))
+        log_device_split(torch, "library", conv)
+        L = 2 * XST_RADIUS + 1
+        # the numerator's multiply-adds; s1 and s2 are box sums, O(w L s)
+        # a node against the numerator's L^2 s^2, and are not counted
+        flops = 2.0 * nf * nodes * L * L * XST_TILE * XST_TILE
         rows.append({"name": f"ncc_sums F={nf}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/densetrack_sums.cu",
                      "replaces": "barc4dip_tpu/ops/densetrack.py:121",
                      "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                     **bound(nbytes(ref, fr, *got), flops), "library_ms": library_ms})
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
     return rows
 
 
@@ -736,7 +846,7 @@ def main() -> int:
         log(f"stack {stack.shape} {stack.dtype}; tracking ROI {roi_side} px, step {step} px")
 
     with Phase("kernels"):
-        rows = check_kernels(torch, dev, stack, starts, s)
+        rows = check_kernels(torch, dev, stack, starts, s, card)
 
     with Phase("slice"):
         res = run_slice(torch, dev, stack, card)
@@ -750,7 +860,7 @@ def main() -> int:
             f"{int(data['dead'].sum())} dead pixels")
 
     with Phase("kernels-2"):
-        rows += check_kernels_xst(torch, dev, data)
+        rows += check_kernels_xst(torch, dev, data, card)
 
     with Phase("xst"):
         xst = run_xst(torch, dev, data, card)

@@ -221,6 +221,16 @@ def test_median3x3_matches_plain_exactly(dev, shape):
     assert torch.equal(got, cuda_median.median3x3_plain(x))
 
 
+def test_median3x3_unaligned_rows_match_plain(dev):
+    """A plane that starts 4 bytes past a 16-byte boundary takes the scalar
+    loads: still exactly the plain version."""
+    buf = torch.from_numpy(np.random.default_rng(3).normal(size=512 * 256 + 1).astype(np.float32))
+    x = buf.to(dev)[1:].view(512, 256)
+    got = cuda_median.median3x3(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_median.median3x3_plain(x))
+
+
 def test_median3x3_propagates_nan(dev):
     x = torch.from_numpy(np.random.default_rng(2).normal(size=(300, 257)).astype(np.float32)).to(dev)
     x.view(-1)[::113] = float("nan")
@@ -243,8 +253,10 @@ def test_median_uncovered_calls_are_counted(dev):
     assert cuda_median.PLAIN_BY_SHAPE == {"median3x3:16x16:float64": 1, "median5x5:16x16:float32": 1}
 
 
-@pytest.mark.parametrize("nf, side, s, r, step", [(1, 2048, 33, 10, 16), (4, 2048, 33, 10, 16),
-                                                  (2, 256, 9, 3, 7)])
+@pytest.mark.parametrize("nf, side, s, r, step", [
+    (1, 2048, 33, 10, 16), (2, 2048, 33, 10, 16), (3, 2048, 33, 10, 16), (4, 2048, 33, 10, 16),
+    (2, 256, 9, 3, 7), (1, 512, 21, 7, 11), (4, 512, 21, 7, 11), (2, 256, 61, 20, 64),
+])
 def test_ncc_sums_matches_plain(dev, nf, side, s, r, step):
     frames = _frames(dev, nf + 1, side)
     frames = (frames - frames.mean()) / frames.std()
@@ -261,9 +273,11 @@ def test_ncc_sums_matches_plain(dev, nf, side, s, r, step):
 
 
 def test_ncc_sums_uncovered_geometry_is_counted(dev):
+    """A window too large for a block's shared memory (241 px) takes the
+    plain version and is counted."""
     frames = _frames(dev, 2, 256)
-    y0s, x0s = densetrack.grid_starts(256, 256, 81, 20, 64)
+    y0s, x0s = densetrack.grid_starts(256, 256, 201, 20, 64)
     cuda_densetrack.reset_counts()
-    cuda_densetrack.ncc_sums(frames[0], frames[1], y0s, x0s, 81, 20)
+    cuda_densetrack.ncc_sums(frames[0], frames[1], y0s, x0s, 201, 20)
     assert cuda_densetrack.LAUNCHES == {"ncc_sums": 0}
-    assert cuda_densetrack.PLAIN_BY_SHAPE == {"ncc_sums:s81r20:float32": 1}
+    assert cuda_densetrack.PLAIN_BY_SHAPE == {"ncc_sums:s201r20:float32": 1}

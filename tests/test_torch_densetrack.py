@@ -75,6 +75,107 @@ def test_wrapper_reads_the_grid_from_the_images(pair):
         cuda_densetrack.ncc_sums(base, img, y0s - 1, x0s, 13, 4)
 
 
+def _kernel_model(tile, win, s, r):
+    """K3's arithmetic as ``csrc/densetrack_sums.cu`` orders it, in float64
+    numpy: the numerator by each thread's 7-wide strip sliding a 12-value
+    ring along the window rows, in parts of tile rows whose sums meet at
+    the end; s1 and s2 as row sums then column sums, each run's first sum
+    direct and the next ones sliding. A read past the kernel's shared
+    arrays raises."""
+    S, R = cuda_densetrack.STRIP, cuda_densetrack.RING
+    L, w = 2 * r + 1, s + 2 * r
+    lay = cuda_densetrack.launch_layout(s, r)
+    tp = np.zeros((s, lay.sp))
+    tp[:, :s] = tile - tile.mean()
+    wpad = np.zeros((w, lay.wp))
+    wpad[:, :w] = win
+
+    def slide(x, n, step, guard):
+        """Slide a ring over x(m), the value at offset m of each task's row,
+        calling step(b, k, ring) for each of the n steps (guarded or not)."""
+        ring = np.zeros(x(0).shape + (R,))
+        for j in range(S - 1):
+            ring[..., j] = x(j)
+        for b0 in range(0, n, R):
+            for k in range(R):
+                if guard and b0 + k >= n:
+                    continue
+                ring[..., (k + S - 1) % R] = x(b0 + k + S - 1)
+                step(b0 + k, k, ring)
+
+    u, v0 = cuda_densetrack.strip_tasks(L)
+    rows = -(-s // lay.ksplit)
+    acc = np.zeros((len(u), S))
+    for a0 in range(0, s, rows):  # the parts' sums meet at the end, in order
+        part = np.zeros_like(acc)
+        for a in range(a0, min(s, a0 + rows)):
+            def step(b, k, ring, a=a):
+                for j in range(S):
+                    part[:, j] += ring[:, (k + j) % R] * tp[a, b]
+            slide(lambda m, a=a: wpad[u + a, v0 + m], lay.sp, step, guard=False)
+        acc += part
+    num = np.full((L, L), np.nan)
+    for t in range(len(u)):
+        for j in range(S):
+            if v0[t] + j < L:
+                assert np.isnan(num[u[t], v0[t] + j])  # each offset once
+                num[u[t], v0[t] + j] = acc[t, j]
+
+    def box_run(x, n, count):
+        """x(m) -> the values at offset m of each task's run: the first sum
+        direct, each next one sliding by one, as the kernel's box_run."""
+        out = np.empty(x(0).shape + (count,))
+        acc = sum(x(b) for b in range(n))
+        out[..., 0] = acc
+        for m in range(1, count):
+            acc = acc + (x(m + n - 1) - x(m - 1))
+            out[..., m] = acc
+        return out
+
+    y = np.arange(w)
+    rs1 = box_run(lambda m: wpad[y, m], s, L)                       # (w, L)
+    rs2 = box_run(lambda m: wpad[y, m] ** 2, s, L)
+    out = [box_run(lambda m, rs=rs: rs[m, :], s, L).T for rs in (rs1, rs2)]
+    return num, out[0], out[1]
+
+
+@pytest.mark.parametrize("s, r", [(33, 10), (21, 7), (9, 3), (13, 4), (5, 1)])
+def test_kernel_arithmetic_model_matches_direct_sums(s, r):
+    """The kernel's strip partition covers every offset once, and its ring
+    numerator and separable sliding box sums equal the direct float64
+    sums."""
+    rng = np.random.default_rng(s * 100 + r)
+    w, L = s + 2 * r, 2 * r + 1
+    tile, win = rng.normal(size=(s, s)), rng.normal(size=(w, w))
+    got = _kernel_model(tile, win, s, r)
+    t = tile - tile.mean()
+    want = [np.empty((L, L)) for _ in range(3)]
+    for u in range(L):
+        for v in range(L):
+            x = win[u:u + s, v:v + s]
+            want[0][u, v], want[1][u, v], want[2][u, v] = (x * t).sum(), x.sum(), (x * x).sum()
+    for name, g, wv in zip(("num", "s1", "s2"), got, want):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, wv, rtol=1e-12, atol=1e-12 * np.abs(wv).max(), err_msg=name)
+
+
+def test_layout_covers_config_f_without_conflicts():
+    """Config F (33-px tiles, radius 10): 63 strips, the tile rows in 2
+    parts of 2 warps, under the 48 KB of shared memory that needs no
+    opt-in, at any number of frames (the blocks loop over them), with no
+    bank conflict on the numerator's window loads;
+    larger geometries opt in up to 227 KB, and those past it or past 256
+    threads are not covered."""
+    lay = cuda_densetrack.launch_layout(33, 10)
+    assert (lay.nstrip, lay.lp, lay.sp, lay.tpp, lay.ksplit, lay.threads) == (3, 21, 36, 64, 2, 128)
+    assert lay.wp >= lay.lp + lay.sp - 1 and lay.smem <= 48 * 1024
+    assert cuda_densetrack._bank_conflicts(33, 21, 64, 2, lay.wp) == 4  # one wavefront a warp
+    assert cuda_densetrack.supported(21, 7) and cuda_densetrack.supported(61, 20)
+    assert cuda_densetrack.launch_layout(61, 20).smem > 100 * 1024
+    assert not cuda_densetrack.supported(201, 20)   # shared memory
+    assert not cuda_densetrack.supported(9, 60)     # 121 x 18 strips
+
+
 def test_grid_starts_identical():
     for args in [(112, 112, 13, 4, 10), (2048, 2048, 33, 10, 16), (96, 130, 17, 4, 24)]:
         for a, b in zip(td.grid_starts(*args), jd.grid_starts(*args)):

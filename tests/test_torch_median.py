@@ -86,3 +86,65 @@ def test_cpu_calls_launch_and_count_nothing():
     median_filter2d(torch.zeros(8, 8, dtype=torch.float64), 5)
     assert cuda_median.LAUNCHES == {"median3x3": 0}
     assert cuda_median.PLAIN_BY_SHAPE == {}
+
+
+def _nan_min(a, b):
+    return np.where((a < b) | (a != a), a, b)
+
+
+def _nan_max(a, b):
+    return np.where((a > b) | (a != a), a, b)
+
+
+def _med3(a, b, c):
+    return _nan_max(_nan_min(a, b), _nan_min(_nan_max(a, b), c))
+
+
+def _column_sort_median(v):
+    """K2's median of 9 (``csrc/median3x3.cu``): each column of 3 sorted by
+    three NaN-propagating exchanges, then med3(max of the minima, med3 of
+    the medians, min of the maxima). ``v``: 9 arrays, row-major 3x3."""
+    cols = []
+    for c in range(3):
+        a, b, d = v[c], v[3 + c], v[6 + c]
+        a, b = _nan_min(a, b), _nan_max(a, b)
+        b, d = _nan_min(b, d), _nan_max(b, d)
+        a, b = _nan_min(a, b), _nan_max(a, b)
+        cols.append((a, b, d))
+    lo = _nan_max(_nan_max(cols[0][0], cols[1][0]), cols[2][0])
+    md = _med3(cols[0][1], cols[1][1], cols[2][1])
+    hi = _nan_min(_nan_min(cols[0][2], cols[1][2]), cols[2][2])
+    return _med3(lo, md, hi)
+
+
+@pytest.mark.parametrize("specials", [False, True])
+def test_column_sort_median_equals_median9(specials):
+    """The kernel's column-sort median equals the TPU kernel's Paeth network
+    (``pallas_median._median9``) on random 3x3 sets with ties and, with
+    ``specials``, NaN and +-inf: NaN wherever the set holds one."""
+    from barc4dip_tpu.ops.pallas_median import _median9
+
+    rng = np.random.default_rng(11 + specials)
+    v = rng.integers(-4, 5, size=(9, 50000)).astype(np.float32)
+    if specials:
+        v[rng.random(v.shape) < 0.04] = np.inf
+        v[rng.random(v.shape) < 0.04] = -np.inf
+        v[rng.random(v.shape) < 0.02] = np.nan
+    got = _column_sort_median(list(v))
+    want = np.asarray(_median9([jnp.asarray(x) for x in v]))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).any() == specials
+
+
+@pytest.mark.parametrize("shape", [(37, 52), (8, 128), (1, 5), (45, 70), (33, 129)])
+def test_kernel_model_matches_scipy(shape):
+    """K2's whole arithmetic on an image: rows and columns clamped (the
+    symmetric pad of width 1) and the column-sort median, exactly
+    scipy's 3x3 median, including widths that are not a multiple of 4."""
+    x = np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
+    H, W = shape
+    ys, xs = np.arange(H), np.arange(W)
+    v = [x[np.clip(ys + dy, 0, H - 1)][:, np.clip(xs + dx, 0, W - 1)]
+         for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    np.testing.assert_array_equal(_column_sort_median(v),
+                                  ndimage.median_filter(x, size=3, mode="reflect"))

@@ -6,15 +6,17 @@ module names and result dicts and runs on an NVIDIA GPU, with hand-written
 CUDA kernels where the JAX package has Pallas kernels. It imports torch and
 numpy, never jax.
 
-Ported so far: ``speckle_stack_stats`` (all four metric groups, full frame
-plus tiles, abs/inc template tracking) with kernel K1 (``ops/cuda_fftp.py``
-+ ``csrc/fftp_corr.cu``), and the XST path: ``preprocessing`` (flat-field
-with bad-pixel repair, kernel K2 in ``ops/cuda_median.py`` +
-``csrc/median3x3.cu``), ``signal`` (dense tracking, kernel K3 in
-``ops/cuda_densetrack.py`` + ``csrc/densetrack_sums.cu``), ``maths`` and
-``models``. See ROADMAP.md.
+Ported so far: the speckle API (``speckle_stats`` and its standalone
+estimators, ``distribution_moments``, ``speckle_stack_stats`` with every
+option but ``mesh``: lazy grain maps, tensor stacks, windowed and phase
+tracking, checkpoints) with kernel K1 (``ops/cuda_fftp.py`` +
+``csrc/fftp_corr.cu``), ``models.full_step_fn``, and the XST path:
+``preprocessing`` (flat-field with bad-pixel repair, kernel K2 in
+``ops/cuda_median.py`` + ``csrc/median3x3.cu``), ``signal`` (dense
+tracking, kernel K3 in ``ops/cuda_densetrack.py`` +
+``csrc/densetrack_sums.cu``), ``maths`` and ``models``. See ROADMAP.md.
 """
 from . import config
-from .metrics import speckle_stack_stats
+from .metrics import distribution_moments, speckle_stack_stats, speckle_stats
 
-__all__ = ["config", "speckle_stack_stats"]
+__all__ = ["config", "distribution_moments", "speckle_stack_stats", "speckle_stats"]

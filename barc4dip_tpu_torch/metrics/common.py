@@ -1,10 +1,16 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Display origin, group selection and the tiling policy with its batched
-tile executor (counterpart of ``barc4dip_tpu/metrics/common.py``).
+"""Display origin, group selection, the tiling policy with its batched
+tile executor, the tile schema and the stack chunk layout (counterpart of
+``barc4dip_tpu/metrics/common.py``).
 
 Tiles are cut with static slices and grouped into equal-shape buckets
 (split_edges gives at most two sizes per axis); each bucket becomes one
 batch dimension of the estimator call, where the JAX package vmaps.
+
+The port's stack loop runs uniform chunks of ``frame_chunk`` frames. The
+JAX package ramps its first and last chunks on one device; both layouts
+give equal results (``tests/test_aggregators.py``,
+``test_ramped_chunk_schedule_matches_single_chunk``).
 """
 from __future__ import annotations
 
@@ -17,15 +23,28 @@ import numpy as np
 import torch
 
 __all__ = [
+    "TILE_GRID_SHAPE_3X3",
+    "TILE_LABELS_3X3",
+    "TILE_ORDER",
     "apply_display_origin",
     "choose_tiling_mode",
+    "chunk_layout_signature",
+    "nan_std_grid_3x3",
     "normalize_display_origin",
     "normalize_groups",
+    "pack_mean_std",
     "split_edges",
     "subtile_grids_to_3x3_device",
     "tile_plan",
     "tiled_scalar_fields_device",
+    "tiles_meta",
 ]
+
+TILE_GRID_SHAPE_3X3: tuple[int, int] = (3, 3)
+TILE_ORDER: str = "row-major"
+TILE_LABELS_3X3: np.ndarray = np.array(
+    [["NW", "N", "NE"], ["W", "C", "E"], ["SW", "S", "SE"]], dtype=object
+)
 
 
 def normalize_display_origin(display_origin: str) -> Literal["upper", "lower"]:
@@ -81,6 +100,48 @@ def choose_tiling_mode(
         stacklevel=2,
     )
     return "off", None
+
+
+def tiles_meta(
+    h: int,
+    w: int,
+    *,
+    tile_mode: Literal["off", "tiles_3x3", "subtiles_9x9"],
+    tile_shape_px: tuple[int, int] | None = None,
+) -> dict:
+    """The ``meta`` entries that describe a tiling."""
+    meta: dict = {"tile_mode": tile_mode}
+    if tile_mode == "off":
+        return meta
+    if tile_shape_px is None:
+        raise ValueError("tile_shape_px must be provided when tile_mode is not 'off'.")
+    meta.update(
+        {
+            "tile_grid_shape": TILE_GRID_SHAPE_3X3,
+            "tile_labels": TILE_LABELS_3X3,
+            "tile_order": TILE_ORDER,
+            "tile_shape_px": (int(tile_shape_px[0]), int(tile_shape_px[1])),
+            "used_subtiles": bool(tile_mode == "subtiles_9x9"),
+        }
+    )
+    return meta
+
+
+def nan_std_grid_3x3() -> np.ndarray:
+    return np.full((3, 3), np.nan, dtype=float)
+
+
+def pack_mean_std(mean, std) -> dict:
+    return {"mean": np.asarray(mean, dtype=float), "std": np.asarray(std, dtype=float)}
+
+
+def chunk_layout_signature(T: int, frame_chunk: int) -> tuple:
+    """Chunk starts of the port's stack loop over T frames: uniform chunks
+    of ``frame_chunk`` (at most T) frames. Part of a checkpoint's
+    configuration, so chunks saved under one layout never resume under
+    another."""
+    B = max(1, min(int(frame_chunk), max(1, int(T))))
+    return tuple(range(0, int(T), B))
 
 
 @lru_cache(maxsize=256)

@@ -24,12 +24,14 @@ from ..ops.radialcore import (
     radial_mean_interpolated_core,
 )
 from ..ops.widths import distance_at_fraction_core, width_at_fraction_core
+from ..signal.common import lag_axis_from_step
 
 __all__ = [
     "amplitude_core",
     "bandwidth_core",
     "distribution_moments_core",
     "grain_core",
+    "grain_map_core",
 ]
 
 _INV_E = float(1.0 / np.e)
@@ -63,14 +65,9 @@ def amplitude_core(img, *, p_low: float = 0.05, p_high: float = 99.95, integer_r
     return {"visibility": visibility, "contrast": contrast}
 
 
-def _autocorr_widths(img, *, fraction: float, radial_method: str):
-    """pad -> autocorrelation -> peak -> axis cuts -> widths -> radial
-    fraction distance. Returns (lx, ly, leq)."""
-    ac = autocorr2d_core(_pad_to_square_mean(img), remove_mean=True, normalize="peak")
-    return _widths_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
-
-
 def _widths_from_autocorr(ac, *, fraction: float, radial_method: str):
+    """peak -> axis cuts -> widths -> radial fraction distance of
+    peak-normalized autocorrelation maps. Returns (lx, ly, leq)."""
     N = ac.shape[-1]
     flat = ac.flatten(-2).argmax(-1)
     iy, ix = flat // N, flat % N
@@ -94,12 +91,27 @@ def _widths_from_autocorr(ac, *, fraction: float, radial_method: str):
     return lx, ly, 2.0 * dist * dr
 
 
-def grain_core(img, *, fraction: float = _INV_E, radial_method: str = "interpolated") -> dict:
+def grain_core(
+    img, *, fraction: float = _INV_E, radial_method: str = "interpolated", with_map: bool = True
+) -> dict:
     """Speckle grain sizes from the autocorrelation peak: lx, ly, leq and
-    the anisotropy r = lx/ly (the map-free form of the JAX ``grain_core``)."""
-    lx, ly, leq = _autocorr_widths(img, fraction=fraction, radial_method=radial_method)
+    the anisotropy r = lx/ly, plus the peak-normalized autocorrelation map
+    (..., N, N) and its lag axes (N,) unless ``with_map=False``."""
+    ac = grain_map_core(img)
+    lx, ly, leq = _widths_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
     r = torch.where(ly != 0, lx / torch.where(ly != 0, ly, 1.0), np.inf)
-    return {"lx": lx, "ly": ly, "leq": leq, "r": r}
+    out = {"lx": lx, "ly": ly, "leq": leq, "r": r}
+    if with_map:
+        lag = torch.as_tensor(lag_axis_from_step(ac.shape[-1], 1.0), dtype=ac.dtype, device=ac.device)
+        out.update(autocorr=ac, xlag=lag, ylag=lag)
+    return out
+
+
+def grain_map_core(img):
+    """The peak-normalized, fftshifted autocorrelation map of the
+    mean-padded square image, (..., N, N): what a lazy map leaf computes
+    when it is read."""
+    return autocorr2d_core(_pad_to_square_mean(img), remove_mean=True, normalize="peak")
 
 
 def bandwidth_core(img) -> dict:

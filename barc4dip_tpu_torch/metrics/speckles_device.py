@@ -4,6 +4,7 @@ of ``barc4dip_tpu/metrics/speckles_device.py``)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .common import subtile_grids_to_3x3_device, tiled_scalar_fields_device
 from .estimators import (
@@ -17,13 +18,18 @@ __all__ = ["int_value_hint", "speckle_device_fn"]
 
 
 def int_value_hint(dtype):
-    """(lo, hi) integer-value range of a float image converted from integer
-    numpy ``dtype`` (uint16 detector frames), or None."""
-    dtype = np.dtype(dtype)
-    if np.issubdtype(dtype, np.integer):
+    """(lo, hi) integer-value range of a float image converted from an
+    integer numpy or torch ``dtype`` (uint16 detector frames), or None."""
+    if isinstance(dtype, torch.dtype):
+        if dtype.is_floating_point or dtype.is_complex or dtype == torch.bool:
+            return None
+        info = torch.iinfo(dtype)
+    elif np.issubdtype(np.dtype(dtype), np.integer):
         info = np.iinfo(dtype)
-        if info.max - info.min < (1 << 24) and abs(int(info.min)) < (1 << 24):
-            return (int(info.min), int(info.max))
+    else:
+        return None
+    if info.max - info.min < (1 << 24) and abs(int(info.min)) < (1 << 24):
+        return (int(info.min), int(info.max))
     return None
 
 
@@ -40,7 +46,7 @@ def speckle_device_fn(groups: frozenset, mode: str, sat: float | None, eps: floa
         if "amplitude" in groups:
             vals["amplitude"] = amplitude_core(img, integer_range=int_range)
         if "grain" in groups:
-            vals["grain"] = grain_core(img)
+            vals["grain"] = grain_core(img, with_map=False)
         if "stats" in groups:
             vals["stats"] = distribution_moments_core(img, saturation_value=sat, eps=eps)
         if "bandwidth" in groups:

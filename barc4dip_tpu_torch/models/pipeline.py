@@ -1,11 +1,12 @@
 # SPDX-License-Identifier: CECILL-2.1
 """End-to-end analysis pipelines (counterpart of
 ``barc4dip_tpu/models/pipeline.py``): dense XST wavefront sensing over a
-scan, and flat-field plus speckle-stack analysis.
+scan, flat-field plus speckle-stack analysis, and ``full_step_fn``, the
+flagship per-chunk step as one function on tensors.
 
 Not ported yet, and raising ``NotImplementedError``: the file-driven entry
 points (``run_files``, ``run_edf_files``, ``run_hdf5``; ROADMAP.md Queue 1
-item 7), ``SharpnessScanPipeline`` (item 8) and ``full_step_fn`` (item 5).
+item 7). ``SharpnessScanPipeline`` waits for item 8.
 """
 from __future__ import annotations
 
@@ -14,10 +15,14 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
+from ..metrics.estimators import amplitude_core, distribution_moments_core, grain_core
 from ..metrics.speckles import speckle_stack_stats
+from ..metrics.tracking_batch import _extract_tiles
+from ..ops import ncc as ncc_ops
+from ..ops import phasecorr as pc_ops
 from ..preprocessing.normalize import flat_field_correction
 
-__all__ = ["SpeckleStackPipeline", "WavefrontScanPipeline"]
+__all__ = ["SpeckleStackPipeline", "WavefrontScanPipeline", "full_step_fn"]
 
 
 def _file_io_not_ported(name: str):
@@ -168,3 +173,51 @@ class SpeckleStackPipeline:
 
     def run_hdf5(self, path, *, verbose: bool = False, checkpoint_dir=None) -> dict:
         raise _file_io_not_ported("SpeckleStackPipeline.run_hdf5")
+
+
+def full_step_fn(roi_side: int, roi_starts: np.ndarray):
+    """The flagship per-chunk step as one function on tensors:
+
+        (frames (B, H, W), prevs (B, H, W), flat (H, W), dark (H, W),
+         tpl0 (9, s, s)) -> {amplitude, grain, stats: {field: (B,)},
+                             dy_abs, dx_abs, dy_inc, dx_inc: (B, 9)}
+
+    Flat-field (a denominator flat - dark <= 0 reads 1), amplitude, grain
+    (no map) and distribution moments of each corrected frame, then its
+    NCC tracking against the 9 raw frame-0 templates (abs) and the 9 tiles
+    of its corrected predecessor (inc): the valid NCC maps of each bank
+    through one ``cuda_fftp.corr_from_rfft`` call (kernel K1a on CUDA), their
+    argmax and the Newton subpixel step."""
+    s = int(roi_side)
+    starts = np.asarray(roi_starts, np.int64).reshape(-1, 2)
+    centers_y = (starts[:, 0] + (s - 1) / 2.0).astype(np.float32)
+    centers_x = (starts[:, 1] + (s - 1) / 2.0).astype(np.float32)
+
+    def step(frames, prevs, flat, dark, tpl0):
+        den = flat - dark
+        den = torch.where(den <= 0, 1.0, den)
+        corrected = (frames - dark) / den
+        prev_c = (prevs - dark) / den
+        out = {
+            "amplitude": amplitude_core(corrected),
+            "grain": grain_core(corrected, with_map=False),
+            "stats": distribution_moments_core(corrected),
+        }
+        prep = ncc_ops.zncc_prepare_image(corrected, s, s)
+
+        def peaks(templates):
+            corr = ncc_ops.ncc_valid_from_prepared(prep, templates)
+            i, j = pc_ops.argmax2d(corr)
+            di, dj = pc_ops.subpixel_taylor(corr, i, j)
+            return i.to(corr.dtype) + di, j.to(corr.dtype) + dj
+
+        half = (s - 1) / 2.0
+        cy = torch.as_tensor(centers_y, device=corrected.device).to(corrected.dtype)
+        cx = torch.as_tensor(centers_x, device=corrected.device).to(corrected.dtype)
+        for kind, templates in (("abs", tpl0), ("inc", _extract_tiles(prev_c, starts, s))):
+            py, px = peaks(templates)
+            out[f"dy_{kind}"] = py + half - cy
+            out[f"dx_{kind}"] = px + half - cx
+        return out
+
+    return step

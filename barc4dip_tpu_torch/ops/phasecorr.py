@@ -1,11 +1,48 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Peak localisation (counterpart of ``barc4dip_tpu/ops/phasecorr.py``'s
-``argmax2d`` and ``subpixel_taylor``) on batches of (..., H, W) maps."""
+"""Phase correlation and peak localisation (counterpart of
+``barc4dip_tpu/ops/phasecorr.py``) on batches of (..., H, W) maps.
+
+The phase-correlation surface runs on ``torch.fft``: its inverse transform
+is of a whitened cross-power spectrum, not of the plain product kernel K1
+computes.
+"""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["argmax2d", "subpixel_taylor"]
+from .momentscore import nanmean2d, nanstd2d
+from .quantile import median_exact
+
+__all__ = [
+    "argmax2d",
+    "peak_quality",
+    "phase_corr_from_spectra",
+    "phase_corr_surface",
+    "subpixel_taylor",
+    "zscore2d",
+]
+
+
+def zscore2d(a, *, eps: float = 1e-9):
+    """(a - nanmean) / (nanstd + eps) of each image (reference _zscore2d)."""
+    return (a - nanmean2d(a)[..., None, None]) / (nanstd2d(a)[..., None, None] + eps)
+
+
+def phase_corr_surface(img_z, tpl_pad, *, eps: float = 1e-9):
+    """|fftshift(irfft2(whitened cross-power spectrum))| of same-shape real
+    images (pre-normalised: z-scored, templates embedded)."""
+    H, W = img_z.shape[-2], img_z.shape[-1]
+    return phase_corr_from_spectra(
+        torch.fft.rfft2(img_z), torch.fft.rfft2(tpl_pad), s=(H, W), eps=eps
+    )
+
+
+def phase_corr_from_spectra(Fi, Ft, *, s, eps: float = 1e-9):
+    """:func:`phase_corr_surface` from the rfft2 spectra (broadcasting), so
+    one image spectrum serves a bank of templates."""
+    prod = Fi * Ft.conj()
+    corr = torch.fft.irfft2(prod / (prod.abs() + eps), s=s)
+    return torch.fft.fftshift(corr, dim=(-2, -1)).abs()
 
 
 def argmax2d(a):
@@ -14,6 +51,15 @@ def argmax2d(a):
     W = a.shape[-1]
     idx = a.flatten(-2).argmax(-1)
     return idx // W, idx % W
+
+
+def peak_quality(corr, i, j, *, eps: float = 1e-9):
+    """(peak value, snr) with snr = |peak| / (median|corr| + eps), per map
+    (reference _corr_peak_quality)."""
+    W = corr.shape[-1]
+    idx = torch.as_tensor(i, device=corr.device) * W + torch.as_tensor(j, device=corr.device)
+    peak = corr.flatten(-2).gather(-1, idx[..., None].expand(*corr.shape[:-2], 1))[..., 0]
+    return peak, peak.abs() / (median_exact(corr.abs()) + eps)
 
 
 def subpixel_taylor(corr, i, j, *, convention: str = "newton", bounds=None):

@@ -18,9 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, upload
 from ..maths.integrate import integrate_gradients
-from ..metrics.stack_fused import upload
 from ..ops.densetrack import (
     dense_track_program,
     dense_track_stack_program,

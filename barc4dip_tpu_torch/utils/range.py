@@ -13,8 +13,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import resolve_device
-from ..metrics.stack_fused import upload
+from ..config import resolve_device, upload
 from ..ops.quantile import nanpercentiles_exact
 from ..ops.rank import median_filter2d
 

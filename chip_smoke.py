@@ -19,36 +19,58 @@ Phases, one line each with its wall time:
    kernel: the device time of each pass from 10 calls under torch.profiler,
    and the time per call of 10 calls queued back to back (host enqueue
    overlapped);
-4. slice: ``speckle_stack_stats`` on a 16 x 2048^2 uint16 spiral stack
-   (Config D), run twice; the second run is counted and timed. Checks the
-   K1 launch counts, the tracking error against the known motion
-   (<= 0.05 px) and the frame 0-1 ``full``/``tiles`` leaves against a
-   float64 run of the same frames on the card (rtol 1e-4) and, where the
-   frames' key is in ``.bench_metric_golden.json``, against that golden;
-5. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
+4. slice: ``speckle_stack_stats`` at the JAX package's defaults (lazy
+   grain maps on) on a 16 x 2048^2 uint16 spiral stack (Config D), run
+   twice; the second run is counted and timed. Checks the K1 launch counts
+   (one K1a a chunk for the full-frame grain, two K1b), the tracking error
+   against the known motion (<= 0.05 px), then reads the maps of frames 0
+   and 1 by index (exactly two more K1a);
+   values: the frame 0-1 ``full``/``tiles`` leaves, those two maps
+   included, against a float64 run of the same frames on the card (rtol
+   1e-4) and, where the frames' key is in ``.bench_metric_golden.json``,
+   against that golden (maps in its strided-sample form);
+5. speckle-stats: ``speckle_stats`` on frame 0 (all groups, tiles), run
+   twice, the second counted: K1a launches; leaves against a float64 run on
+   the card (rtol 1e-4); reading the lazy map launches K1a once more and
+   matches the float64 map;
+6. resident: the stack as a CUDA tensor, run twice, the second counted and
+   timed (MP/s): K1b launches, every leaf against the host stack's counted
+   run, exactly;
+7. options, on frames 0-7: ``tracking_search_radius=16`` (the search area,
+   trajectories within 1e-3 px of the full search, the 0.05 px gate,
+   ``PLAIN_BY_SHAPE`` growing only by the window shape); phase tracking
+   (``roi_grain_factor=12``) on a 512^2 float32 spiral stack within 0.5 px
+   (Config D's frames are logged, not gated: phase correlation does not
+   lock on to them, in either package); ``checkpoint_dir`` run twice: the
+   second run loads every chunk, launches no K1 and equals the first;
+8. full-step: ``models.full_step_fn`` at B = 4 on 2048^2 (flat-field of
+   frames 1-4 against their predecessors) on the card: K1a launches;
+   metrics at rtol 1e-4 and shifts within 0.05 px of its float64 run,
+   shifts within 0.05 px of the known motion;
+9. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
    a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
    shift, as raw uint16 with flats, darks and 0.1% dead pixels;
-6. kernels-2: K2 against its plain version on the flat-field's own input
-   at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
-   plain version at Config F (33-px tiles, step 16, radius 10: 15,625
-   nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
-   and s2 (sliding box sums) against float64 sums of the same windows at
-   the same tolerance; timed as K1 is (K2's single-call event time is
-   mostly the wrapper's host cost; its device time and queued time per call
-   stand beside it), K3 beside the library call for its numerator (one
-   grouped cuDNN ``conv2d``, TF32 off);
-7. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
-   ``WavefrontScanPipeline`` on the card, run twice; the second run is
-   counted and timed, and one ``track_displacement_field`` at Config F is
-   timed. Checks the K2/K3 launch counts (no uncovered call), the
-   flat-field against a numpy float32 version of the formula (rtol 1e-6,
-   exact at repaired pixels), the field against ``method="fft"`` on the
-   card, the per-frame tracking medians against the known motion
-   (<= 0.05 px) and the wavefront against the parabola (relative error
-   < 0.15, curvature radius within 10%);
-8. with ``--profile``: the metric step and the tracker of one Config D
-   chunk timed apart, then the Config D slice and one XST pass under
-   torch.profiler (device busy time, device time by op and kernel).
+10. kernels-2: K2 against its plain version on the flat-field's own input
+    at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
+    plain version at Config F (33-px tiles, step 16, radius 10: 15,625
+    nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
+    and s2 (sliding box sums) against float64 sums of the same windows at
+    the same tolerance; timed as K1 is (K2's single-call event time is
+    mostly the wrapper's host cost; its device time and queued time per call
+    stand beside it), K3 beside the library call for its numerator (one
+    grouped cuDNN ``conv2d``, TF32 off);
+11. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
+    ``WavefrontScanPipeline`` on the card, run twice; the second run is
+    counted and timed, and one ``track_displacement_field`` at Config F is
+    timed. Checks the K2/K3 launch counts (no uncovered call), the
+    flat-field against a numpy float32 version of the formula (rtol 1e-6,
+    exact at repaired pixels), the field against ``method="fft"`` on the
+    card, the per-frame tracking medians against the known motion
+    (<= 0.05 px) and the wavefront against the parabola (relative error
+    < 0.15, curvature radius within 10%);
+12. with ``--profile``: the metric step and the tracker of one Config D
+    chunk timed apart, then the Config D slice and one XST pass under
+    torch.profiler (device busy time, device time by op and kernel).
 
 Every time printed names the card and its power limit (the nvidia-smi
 line, printed first and again before the result); the kernel phases also
@@ -60,8 +82,9 @@ as one JSON line: a row per kernel and shape with ``max_abs_err``,
 output must move at 3.35 TB/s and the float32 operations these inputs need
 at 67 TFLOP/s, the published H100 SXM peaks), ``library_ms`` (null for K2,
 which has no one-call equivalent) and ``launches`` (the counted run of its
-path). Then, as its last line, ``{"ok": true, "device": {...}}`` for the
-one card it used. Any failed phase exits non-zero. Imports nothing of JAX.
+path), after a line of K1 launches by path. Then, as its last line,
+``{"ok": true, "device": {...}}`` for the one card it used. Any failed
+phase exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -90,6 +113,11 @@ XST_BATCH = 4
 K3_ATOL_REL = 1e-5
 FIELD_ATOL_PX, FIELD_ATOL_PEAK, SAME_PEAK_MIN = 5e-4, 1e-4, 0.999
 WAVEFRONT_REL, RADIUS_REL = 0.15, 0.10
+# the speckle API's other paths: options on frames 0..OPT_T-1, phase
+# tracking on its own stack, full_step_fn at B = FULL_STEP_B
+OPT_T, OPT_RADIUS, WINDOW_ATOL_PX = 8, 16, 1e-3
+PHASE_SIDE, PHASE_GRAIN_PX, PHASE_GATE_PX = 512, 6.0, 0.5
+FULL_STEP_B = 4
 # published H100 SXM peaks at 700 W: device memory, float32 outside the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
@@ -126,8 +154,13 @@ def make_stack() -> np.ndarray:
 
 # -- metric-leaf comparison: the semantics of bench.py's value gate ----------
 
-def metric_leaves(out: dict, k: int) -> dict:
-    """``full`` + ``tiles`` numeric leaves of the first ``k`` frames."""
+def metric_leaves(out: dict, k: int | None = None) -> dict:
+    """``full`` + ``tiles`` numeric leaves of the first ``k`` frames (all of
+    a single image's leaves for ``k=None``). A lazy map stack is read by
+    frame, frames 0..k-1 only: reading it whole would compute every frame's
+    map."""
+    from barc4dip_tpu_torch.utils import LazyMapStack
+
     leaves: dict = {}
 
     def walk(path: str, node) -> None:
@@ -135,10 +168,12 @@ def metric_leaves(out: dict, k: int) -> dict:
             for key, v in node.items():
                 walk(f"{path}.{key}", v)
             return
+        if isinstance(node, LazyMapStack):
+            node = np.stack([node[t] for t in range(min(k, len(node)))])
         arr = np.asarray(node)
         if arr.dtype.kind not in "fiu":
             return
-        if arr.ndim >= 1 and arr.shape[0] >= k:
+        if k is not None and arr.ndim >= 1 and arr.shape[0] >= k:
             arr = arr[:k]
         leaves[path] = np.asarray(arr, np.float64)
 
@@ -146,6 +181,26 @@ def metric_leaves(out: dict, k: int) -> dict:
         if section in out:
             walk(section, out[section])
     return leaves
+
+
+def golden_form(leaves: dict) -> dict:
+    """The leaves as ``bench.py`` stores them in its golden: a leaf of more
+    than 8192 values (a map) becomes a strided sample of 4096 values and
+    its finite mean, RMS and max |value|."""
+    out = {}
+    for path, arr in leaves.items():
+        if arr.size <= 8192:
+            out[path] = arr
+            continue
+        flat = arr.ravel()
+        finite = flat[np.isfinite(flat)]
+        out[path + ".sample4096"] = flat[np.linspace(0, flat.size - 1, 4096).astype(np.int64)]
+        out[path + ".summary"] = np.array([
+            finite.mean() if finite.size else np.nan,
+            np.sqrt(np.mean(finite**2)) if finite.size else np.nan,
+            np.max(np.abs(finite)) if finite.size else np.nan,
+        ])
+    return out
 
 
 def leaf_rel_err(a, b, absolute: bool = False) -> float:
@@ -296,7 +351,7 @@ def fft_flops(n: int) -> float:
 
 def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     """K1a and K1b against their plain versions at the main path's shapes."""
-    from barc4dip_tpu_torch.metrics.stack_fused import upload
+    from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
     from barc4dip_tpu_torch.ops import cuda_fftp, ncc
     from barc4dip_tpu_torch.ops.phasecorr import argmax2d
@@ -383,12 +438,9 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
 
 def run_slice(torch, dev, stack, card: str) -> dict:
     import barc4dip_tpu_torch as port
-    from barc4dip_tpu_torch.metrics.common import tile_plan
     from barc4dip_tpu_torch.ops import cuda_fftp
-    from barc4dip_tpu_torch.utils import spiral_motion
 
-    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, grain_maps=False,
-              verbose=False, device=dev)
+    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
     t0 = time.perf_counter()
     port.speckle_stack_stats(stack, **kw)
     torch.cuda.synchronize()
@@ -411,18 +463,24 @@ def run_slice(torch, dev, stack, card: str) -> dict:
         f"{T / warm_s:.2f} frames/s = {mp / warm_s:.2f} MP/s "
         f"({T} x {H}x{W} uint16, frame_chunk {FRAME_CHUNK}; {card})")
 
-    if not all(launches[k] > 0 for k in ("cols", "rows", "rows_ncc")):
-        raise AssertionError(f"a K1 pass never launched on the main path: {launches}")
-    sub = {max(th, tw) for th, tw, _ in tile_plan(H, W, 9)}
-    allowed = {f"corr:{n}x{n}:complex64" for n in sub if not cuda_fftp.supported((n, n))}
-    if not set(plain) <= allowed:
-        raise AssertionError(f"unexpected plain-path shapes {sorted(set(plain) - allowed)}")
+    # a chunk: one K1a for its full-frame grain, two K1b (abs, inc); maps unread
+    chunks = -(-T // FRAME_CHUNK)
+    want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}
+    if launches != want:
+        raise AssertionError(f"K1 launches {launches} != {want} on the main path")
+    if not set(plain) <= subtile_plain_keys(H, W):
+        raise AssertionError(f"unexpected plain-path shapes {sorted(set(plain) - subtile_plain_keys(H, W))}")
 
     for sec, shape in (("full", (T,)), ("tiles", (T, 3, 3)), ("temporal", (T,))):
         for g, block in out[sec].items():
             if g == "qc":
                 continue
             for f, leaf in block.items():
+                if f in ("autocorr", "xlag", "ylag"):  # the lazy maps stay unread here
+                    want = (T, H, W) if f == "autocorr" else (T, W)
+                    if tuple(leaf.shape) != want:
+                        raise AssertionError(f"{sec}.{g}.{f}: shape {leaf.shape} != {want}")
+                    continue
                 arrs = leaf.values() if isinstance(leaf, dict) else [leaf]
                 for a in arrs:
                     if np.asarray(a).shape != shape:
@@ -430,12 +488,40 @@ def run_slice(torch, dev, stack, card: str) -> dict:
                 if sec != "tiles" and not np.all(np.isfinite(leaf)):
                     raise AssertionError(f"{sec}.{g}.{f}: non-finite values")
 
-    dys, dxs = spiral_motion(T)
-    err = float(np.max(np.hypot(out["temporal"]["abs"]["dy"] - dys, out["temporal"]["abs"]["dx"] - dxs)))
+    err = spiral_error(out)
     log(f"tracking: max |abs trajectory - spiral| = {err:.4f} px (gate {TRACK_GATE_PX} px)")
     if not err <= TRACK_GATE_PX:
         raise AssertionError(f"tracking error {err:.4f} px > {TRACK_GATE_PX} px")
-    return {"out": out, "launches": launches, "warm_s": warm_s, "cold_s": cold_s}
+
+    # the lazy maps of frames 0..GOLDEN_K-1, read by index: one K1a each
+    cuda_fftp.reset_counts()
+    maps = [out["full"]["grain"]["autocorr"][t] for t in range(GOLDEN_K)]
+    map_launches = dict(cuda_fftp.LAUNCHES)
+    log(f"K1 launches reading the maps of frames 0-{GOLDEN_K - 1}: {json.dumps(map_launches)}")
+    if map_launches != {"cols": GOLDEN_K, "rows": GOLDEN_K, "rows_ncc": 0}:
+        raise AssertionError(f"reading {GOLDEN_K} maps launched K1 {map_launches}")
+    if not all(m.shape == (H, W) and m.dtype == np.float32 and np.isfinite(m).all() for m in maps):
+        raise AssertionError("lazy maps: wrong shape, dtype or non-finite values")
+    return {"out": out, "launches": launches, "map_launches": map_launches,
+            "warm_s": warm_s, "cold_s": cold_s}
+
+
+def subtile_plain_keys(H: int, W: int) -> set:
+    """``PLAIN_BY_SHAPE`` keys of the 9x9 subtile autocorrelations K1 does
+    not cover (227/228 px at 2048^2)."""
+    from barc4dip_tpu_torch.metrics.common import tile_plan
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    sub = {max(th, tw) for th, tw, _ in tile_plan(H, W, 9)}
+    return {f"corr:{n}x{n}:complex64" for n in sub if not cuda_fftp.supported((n, n))}
+
+
+def spiral_error(out: dict) -> float:
+    """Max over frames of |abs trajectory - the spiral| (px)."""
+    from barc4dip_tpu_torch.utils import spiral_motion
+
+    dys, dxs = spiral_motion(len(out["temporal"]["abs"]["dy"]))
+    return float(np.max(np.hypot(out["temporal"]["abs"]["dy"] - dys, out["temporal"]["abs"]["dx"] - dxs)))
 
 
 def check_values(dev, stack, out) -> None:
@@ -444,10 +530,13 @@ def check_values(dev, stack, out) -> None:
     run = metric_leaves(out, GOLDEN_K)
     ref64 = port.speckle_stack_stats(
         stack[:GOLDEN_K].astype(np.float64), metrics="all", tiles=True,
-        frame_chunk=FRAME_CHUNK, grain_maps=False, verbose=False, device=dev,
+        frame_chunk=FRAME_CHUNK, verbose=False, device=dev,
     )
-    worst, err, n = compare_leaves(run, metric_leaves(ref64, GOLDEN_K))
-    log(f"values vs float64 run on the card: {n} leaves, max rel err {err:.3e} on {worst} (rtol {RTOL:g})")
+    ref = metric_leaves(ref64, GOLDEN_K)
+    worst, err, n = compare_leaves(run, ref)
+    map_err = leaf_rel_err(run["full.grain.autocorr"], ref["full.grain.autocorr"])
+    log(f"values vs float64 run on the card: {n} leaves (the frame 0-{GOLDEN_K - 1} autocorrelation "
+        f"maps among them: max rel err {map_err:.3e}), max rel err {err:.3e} on {worst} (rtol {RTOL:g})")
     if not err <= RTOL:
         raise AssertionError(f"float64 check: {worst} rel err {err:.3e} > {RTOL:g}")
 
@@ -458,12 +547,243 @@ def check_values(dev, stack, out) -> None:
         log(f"values vs bench golden: not run (key {key} not in {path.name})")
         return
     golden = {p: np.asarray(v, np.float64) for p, v in entry["leaves"].items()}
-    worst, err, n = compare_leaves(run, golden)
-    absent = sorted(set(golden) - set(run))
+    worst, err, n = compare_leaves(golden_form(run), golden)
+    absent = sorted(set(golden) - set(golden_form(run)))
     log(f"values vs bench golden {key}: {n} leaves, max rel err {err:.3e} on {worst} "
-        f"(rtol {RTOL:g}); absent here (grain maps off): {absent}")
+        f"(rtol {RTOL:g}); absent here: {absent}")
     if not err <= RTOL:
         raise AssertionError(f"golden check: {worst} rel err {err:.3e} > {RTOL:g}")
+
+
+# -- the speckle API's other paths ---------------------------------------------
+
+def run_speckle_stats(torch, dev, stack, card: str) -> dict:
+    """``speckle_stats`` on frame 0, run twice, the second counted; its
+    leaves and its lazy map against a float64 run on the card."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    frame = stack[0]
+    kw = dict(metrics="all", tiles=True, verbose=False, device=dev)
+    port.speckle_stats(frame, **kw)
+    cuda_fftp.reset_counts()
+    t0 = time.perf_counter()
+    out = port.speckle_stats(frame, **kw)  # returns host floats: synchronised
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    log(f"speckle_stats {frame.shape} {frame.dtype}, all groups, 9x9 subtiles: {ms:.2f} ms (counted "
+        f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
+    if launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
+        raise AssertionError(f"speckle_stats launched K1 {launches}: one K1a wanted")
+    if not set(plain) <= subtile_plain_keys(*frame.shape):
+        raise AssertionError(f"unexpected plain-path shapes {sorted(plain)}")
+
+    cuda_fftp.reset_counts()
+    amap = np.asarray(out["full"]["grain"]["autocorr"])
+    map_launches = dict(cuda_fftp.LAUNCHES)
+    if map_launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
+        raise AssertionError(f"reading the map launched K1 {map_launches}: one K1a wanted")
+    ref = port.speckle_stats(frame.astype(np.float64), **kw)
+    worst, err, n = compare_leaves(metric_leaves(out), metric_leaves(ref))
+    map_err = leaf_rel_err(amap, np.asarray(ref["full"]["grain"]["autocorr"]))
+    log(f"speckle_stats vs float64 run on the card: {n} leaves, max rel err {err:.3e} on {worst}; "
+        f"the lazy map {amap.shape} (one more K1a: {json.dumps(map_launches)}) max rel err "
+        f"{map_err:.3e} (rtol {RTOL:g})")
+    if not (err <= RTOL and map_err <= RTOL):
+        raise AssertionError(f"speckle_stats float64 check: {worst} {err:.3e}, map {map_err:.3e}")
+    return {"launches": launches, "map_launches": map_launches}
+
+
+def _data_leaves(out: dict) -> dict:
+    """Every eager leaf of full/tiles/temporal (lazy maps left out)."""
+    from barc4dip_tpu_torch.utils import LazyMapStack
+
+    leaves = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for key, v in node.items():
+                walk(f"{path}.{key}", v)
+        elif not isinstance(node, LazyMapStack) and np.asarray(node).dtype.kind in "fiu":
+            leaves[path] = np.asarray(node)
+
+    for sec in ("full", "tiles", "temporal"):
+        walk(sec, out[sec])
+    return leaves
+
+
+def max_leaf_diff(a: dict, b: dict) -> tuple[str | None, float]:
+    """(leaf, max |a - b|) over the eager leaves of two results, NaN equal to
+    NaN; inf where shapes, dtypes or NaN positions differ."""
+    la, lb = _data_leaves(a), _data_leaves(b)
+    if la.keys() != lb.keys():
+        return "keys", float("inf")
+    worst, worst_d = None, 0.0
+    for k in la:
+        x, y = la[k], lb[k]
+        if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(np.isnan(x), np.isnan(y)):
+            return k, float("inf")
+        d = float(np.nanmax(np.abs(x - y))) if x.size and not np.isnan(x).all() else 0.0
+        if d > worst_d:
+            worst, worst_d = k, d
+    return worst, worst_d
+
+
+def run_resident(torch, dev, stack, host_out: dict, card: str) -> dict:
+    """The Config D stack as a CUDA tensor: no uploads, the same per-chunk
+    math; every leaf against the host stack's counted run."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    st = torch.from_numpy(stack).to(dev)
+    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False)
+    port.speckle_stack_stats(st, **kw)
+    cuda_fftp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = port.speckle_stack_stats(st, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    T, H, W = stack.shape
+    log(f"resident stack ({T} x {H}x{W} {st.dtype} on the card): counted run {warm_s:.3f} s = "
+        f"{T * H * W / 1e6 / warm_s:.2f} MP/s end to end; K1 launches {json.dumps(launches)}; {card}")
+    if not (launches["rows_ncc"] > 0 and set(plain) <= subtile_plain_keys(H, W)):
+        raise AssertionError(f"resident run: K1 launches {launches}, plain {sorted(plain)}")
+    worst, d = max_leaf_diff(out, host_out)
+    map_d = float(np.abs(out["full"]["grain"]["autocorr"][0] - host_out["full"]["grain"]["autocorr"][0]).max())
+    log(f"resident vs host-stack run: max |diff| {d:.3e} over every leaf (worst {worst}), "
+        f"frame-0 map {map_d:.3e}")
+    if d != 0.0 or map_d != 0.0:
+        raise AssertionError(f"resident run differs from the host-stack run: {worst} {d:.3e}, map {map_d:.3e}")
+    return {"launches": launches, "warm_s": warm_s}
+
+
+def run_options(torch, dev, stack, card: str) -> dict:
+    """The windowed search, phase tracking and checkpoints on frames
+    0..OPT_T-1 (phase on its own stack, see the module docstring)."""
+    import tempfile
+
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.ops import cuda_fftp
+    from barc4dip_tpu_torch.utils import speckle_stack, spiral_motion
+
+    sub = stack[:OPT_T]
+    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
+    res: dict = {}
+
+    def counted(**extra):
+        port.speckle_stack_stats(sub, **kw, **extra)
+        cuda_fftp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = port.speckle_stack_stats(sub, **kw, **extra)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+
+    full, full_s, _, _ = counted()
+    win, win_s, launches, plain = counted(tracking_search_radius=OPT_RADIUS)
+    w = win["meta"]["tracking"]["roi_size_yx"][0] + 2 * OPT_RADIUS
+    window_key = f"corr:{w}x{w}:complex64"
+    diff = max(float(np.abs(win["temporal"][b][c] - full["temporal"][b][c]).max())
+               for b in ("abs", "inc") for c in ("dy", "dx"))
+    err = spiral_error(win)
+    log(f"windowed search r={OPT_RADIUS} ({win['meta']['tracking']['search_area']}, {w}-px windows): "
+        f"{OPT_T} frames in {win_s:.3f} s against {full_s:.3f} s for the full search; trajectories "
+        f"within {diff:.3e} px of the full search; max |abs - spiral| {err:.4f} px; K1 launches "
+        f"{json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
+    if win["meta"]["tracking"]["search_area"] != f"window_r{OPT_RADIUS}px":
+        raise AssertionError(f"search_area {win['meta']['tracking']['search_area']}")
+    if not (diff <= WINDOW_ATOL_PX and err <= TRACK_GATE_PX):
+        raise AssertionError(f"windowed search: {diff:.3e} px from the full search, {err:.4f} px from the spiral")
+    if not (window_key in plain and set(plain) <= subtile_plain_keys(*sub.shape[1:]) | {window_key}):
+        raise AssertionError(f"windowed search: plain by shape {sorted(plain)}")
+    res["windowed"] = launches
+
+    pk = dict(metrics="stats", tiles=False, tracking_method="phase", roi_grain_factor=12.0,
+              frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
+    dys, dxs = spiral_motion(OPT_T)
+    pst = speckle_stack(OPT_T, (PHASE_SIDE, PHASE_SIDE), grain_px=PHASE_GRAIN_PX, mean_counts=1000.0,
+                        dys=dys, dxs=dxs, seed=np.random.default_rng(SEED), dtype=np.float32)
+    ph = port.speckle_stack_stats(pst, **pk)
+    err = spiral_error(ph)
+    on_d = spiral_error(port.speckle_stack_stats(sub, **pk))
+    log(f"phase tracking (roi_grain_factor 12, ROI {ph['meta']['tracking']['roi_size_yx'][0]} px) on "
+        f"{OPT_T} x {PHASE_SIDE}^2 float32 spiral frames: max |abs - spiral| {err:.4f} px (gate "
+        f"{PHASE_GATE_PX} px); on Config D's frames (not gated) {on_d:.3f} px")
+    if not err <= PHASE_GATE_PX:
+        raise AssertionError(f"phase tracking error {err:.4f} px > {PHASE_GATE_PX} px")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(kw, checkpoint_dir=tmp)
+        first = port.speckle_stack_stats(sub, **ck)
+        n_files = len(list(Path(tmp).glob("*.npz")))
+        cuda_fftp.reset_counts()
+        second = port.speckle_stack_stats(sub, **ck)
+        launches = dict(cuda_fftp.LAUNCHES)
+    worst, d = max_leaf_diff(second, first)
+    log(f"checkpoint: {n_files} chunk files; the resumed run launched K1 {json.dumps(launches)} and "
+        f"differs from the first by {d:.3e} (worst {worst})")
+    if n_files != -(-OPT_T // FRAME_CHUNK) or any(launches.values()) or d != 0.0:
+        raise AssertionError(f"checkpoint resume: {n_files} files, launches {launches}, diff {d:.3e}")
+    res["checkpoint resumed"] = launches
+    return res
+
+
+def run_full_step(torch, dev, stack, starts, s: int, card: str) -> dict:
+    """``full_step_fn`` at B = FULL_STEP_B on the card: frames 1..B
+    flat-fielded and tracked against frame 0's templates and their
+    predecessors, against its float64 run (per tile) and the known motion
+    (the 9 tiles' mean, as the slice's gate)."""
+    from barc4dip_tpu_torch.models import full_step_fn
+    from barc4dip_tpu_torch.ops import cuda_fftp
+    from barc4dip_tpu_torch.utils import spiral_motion
+
+    B = FULL_STEP_B
+    rng = np.random.default_rng(SEED + 1)
+    gain = rng.normal(1.0, 0.02, size=stack.shape[1:]).astype(np.float32)
+    dark = rng.normal(100.0, 2.0, size=stack.shape[1:]).astype(np.float32)
+    flat = gain + dark
+    # half the counts: no pixel near saturation, whose float32/float64
+    # threshold count (frac_sat) would differ by rounding alone
+    raw = 0.5 * stack[: B + 1].astype(np.float32) * gain + dark
+    corrected0 = (raw[0] - dark) / (flat - dark)
+    tpl0 = np.stack([corrected0[y : y + s, x : x + s] for y, x in starts])
+    step = full_step_fn(s, starts)
+
+    def args(dtype):
+        return tuple(torch.from_numpy(a.astype(dtype)).to(dev) for a in (raw[1:], raw[:-1], flat, dark, tpl0))
+
+    a32 = args(np.float32)
+    step(*a32)
+    cuda_fftp.reset_counts()
+    out = step(*a32)
+    torch.cuda.synchronize()
+    launches = dict(cuda_fftp.LAUNCHES)
+    ms = time_ms(torch, lambda: step(*a32))
+    ref = step(*args(np.float64))
+    m_worst, m_err = None, -1.0
+    for g in ("amplitude", "grain", "stats"):
+        for k, v in ref[g].items():
+            e = leaf_rel_err(out[g][k].cpu().numpy(), v.cpu().numpy(), absolute=(k == "SNRdB"))
+            if k == "SNRdB":
+                e *= np.log(10.0) / 20.0
+            if e > m_err:
+                m_worst, m_err = f"{g}.{k}", e
+    keys = ("dy_abs", "dx_abs", "dy_inc", "dx_inc")
+    s_err = max(float((out[k].double() - ref[k]).abs().max()) for k in keys)
+    dys, dxs = spiral_motion(B + 1)  # the stack's first B + 1 positions
+    truth = {"dy_abs": dys[1:], "dx_abs": dxs[1:], "dy_inc": np.diff(dys), "dx_inc": np.diff(dxs)}
+    # the trajectory as speckle_stack_stats reports it: the mean over the 9 tiles
+    t_err = max(float(np.abs(out[k].mean(-1).cpu().numpy() - truth[k]).max()) for k in keys)
+    log(f"full_step_fn B={B} {raw.shape[1]}x{raw.shape[2]} on the card: {ms:.3f} ms a step "
+        f"(CUDA events, median of {REPEATS}) = {B * raw[0].size / 1e6 / ms * 1e3:.2f} MP/s; K1 launches "
+        f"{json.dumps(launches)}; vs float64: metrics max rel err {m_err:.3e} on {m_worst}, shifts "
+        f"{s_err:.3e} px; vs the known motion {t_err:.4f} px; {card}")
+    if not (launches["rows"] > 0 and m_err <= RTOL and s_err <= TRACK_GATE_PX and t_err <= TRACK_GATE_PX):
+        raise AssertionError(f"full_step_fn: launches {launches}, metrics {m_err:.3e}, shifts {s_err:.3e}, "
+                             f"motion {t_err:.4f}")
+    return {"launches": launches}
 
 
 def profile_slice(torch, dev, stack) -> None:
@@ -471,6 +791,7 @@ def profile_slice(torch, dev, stack) -> None:
     timed apart, then the whole slice under torch.profiler (device busy
     time, device time by op and kernel)."""
     import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.metrics import stack_fused
     from barc4dip_tpu_torch.metrics.common import apply_display_origin
     from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
@@ -478,7 +799,7 @@ def profile_slice(torch, dev, stack) -> None:
     from barc4dip_tpu_torch.metrics.tracking_batch import _grid_geometry
     grid, *_ = tracking_grid_from_frame0(stack)
     starts, _, s = _grid_geometry(grid)
-    frames = stack_fused.upload(stack[:FRAME_CHUNK], dev)
+    frames = upload(stack[:FRAME_CHUNK], dev)
     H, W = frames.shape[-2:]
     tpl0 = stack_fused._build_tpl0(frames[0], starts, s, H, W)
     metric_fn = speckle_device_fn(frozenset({"amplitude", "grain", "stats", "bandwidth"}),
@@ -498,8 +819,7 @@ def profile_slice(torch, dev, stack) -> None:
         log(f"chunk of {FRAME_CHUNK}: {name} enqueue {np.median(host) * 1e3:.2f} ms (host), "
             f"{time_ms(torch, fn):.2f} ms to completion (CUDA events), median of {REPEATS}")
 
-    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, grain_maps=False,
-              verbose=False, device=dev)
+    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
     port.speckle_stack_stats(stack, **kw)
     profiled(torch, "slice", lambda: port.speckle_stack_stats(stack, **kw))
 
@@ -589,7 +909,7 @@ def ffc_numpy(raw, flats, darks) -> tuple[np.ndarray, np.ndarray]:
 
 def check_kernels_xst(torch, dev, data, card: str) -> list[dict]:
     """K2 and K3 against their plain versions at the XST slice's shapes."""
-    from barc4dip_tpu_torch.metrics.stack_fused import upload
+    from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_median, densetrack
     from barc4dip_tpu_torch.ops.ncc import window_sums
     from barc4dip_tpu_torch.preprocessing import flat_field_correction
@@ -683,7 +1003,7 @@ def check_kernels_xst(torch, dev, data, card: str) -> list[dict]:
 def run_xst(torch, dev, data, card: str) -> dict:
     """Flat-field and the wavefront scan on the card, run twice; the second
     run is counted and timed."""
-    from barc4dip_tpu_torch.metrics.stack_fused import upload
+    from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.models import WavefrontScanPipeline
     from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_median
     from barc4dip_tpu_torch.preprocessing import flat_field_correction
@@ -853,6 +1173,22 @@ def main() -> int:
 
     with Phase("values"):
         check_values(dev, stack, res["out"])
+
+    with Phase("speckle-stats"):
+        single = run_speckle_stats(torch, dev, stack, card)
+
+    with Phase("resident"):
+        resident = run_resident(torch, dev, stack, res["out"], card)
+
+    with Phase("options"):
+        options = run_options(torch, dev, stack, card)
+
+    with Phase("full-step"):
+        full_step = run_full_step(torch, dev, stack, starts, s, card)
+    by_path = {"slice": res["launches"], "slice map reads": res["map_launches"],
+               "speckle_stats": single["launches"], "speckle_stats map read": single["map_launches"],
+               "resident": resident["launches"], **options, "full_step_fn": full_step["launches"]}
+    log(f"K1 launches by path (counted runs): {json.dumps(by_path)}")
 
     with Phase("data-xst"):
         data = make_xst_data()

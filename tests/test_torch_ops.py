@@ -223,3 +223,76 @@ def test_argmax2d_first_occurrence(rng):
         ri, rj = j_pc.argmax2d(jnp.asarray(m[k]))
         assert (int(i[k]), int(j[k])) == (int(ri), int(rj))
     assert (int(i[0]), int(j[0])) == (4, 7)
+
+
+def _ncc_case(rng, H=64, W=56, h=9, w=7):
+    imgs = np.stack([make_speckle(rng, shape=(H, W), grain_px=3.0) for _ in range(2)])
+    tpls = np.stack([imgs[0, 5 : 5 + h, 8 : 8 + w], imgs[1, 20 : 20 + h, 3 : 3 + w], np.ones((h, w))])
+    return imgs, tpls
+
+
+def test_ncc_valid_and_masked_maps(rng):
+    """The valid and full-masked NCC maps (through cuda_fftp.corr_from_rfft)
+    against the JAX functions, template by template, in both bank layouts;
+    the flat template's zero-energy maps read 0."""
+    imgs, tpls = _ncc_case(rng)
+    h, w = tpls.shape[-2:]
+    prep = t_ncc.zncc_prepare_image(t(imgs), h, w)
+    shared = t_ncc.prep_template(t(tpls), 64, 56)
+    per_image = t_ncc.prep_template(t(np.stack([tpls, tpls[::-1]])), 64, 56)
+    valid = {"shared": t_ncc.ncc_valid_from_preps(prep, shared),
+             "per_image": t_ncc.ncc_valid_from_prepared(prep, t(np.stack([tpls, tpls[::-1]])))}
+    masked, vb = t_ncc.ncc_full_masked_from_preps(prep, per_image)
+    bank, bvb = t_ncc.ncc_bank_masked_from_preps(prep, shared)
+    assert vb == bvb == (64 - h + 1, 56 - w + 1)
+    for f in range(2):
+        jprep = j_ncc.zncc_prepare_image(jnp.asarray(imgs[f]), h, w)
+        for k in range(3):
+            own = k if f == 0 else 2 - k  # image 1's bank is reversed
+            for layout, kk in (("shared", k), ("per_image", own)):
+                jt = j_ncc.prep_template(jnp.asarray(tpls[kk]), 64, 56)
+                close(valid[layout][f, k], j_ncc.ncc_valid_from_preps(jprep, jt))
+            jt = j_ncc.prep_template(jnp.asarray(tpls[own]), 64, 56)
+            close(masked[f, k], j_ncc.ncc_full_masked_from_preps(jprep, jt)[0])
+            close(bank[f, k], j_ncc.ncc_full_masked_from_preps(
+                jprep, j_ncc.prep_template(jnp.asarray(tpls[k]), 64, 56))[0])
+        close(t_ncc.ncc_valid(t(imgs[f]), t(tpls[f])),
+              j_ncc.ncc_valid(jnp.asarray(imgs[f]), jnp.asarray(tpls[f])))
+    assert float(valid["shared"][:, 2].abs().max()) == 0.0
+
+
+def test_phase_corr_surface_zscore_and_peak_quality(rng):
+    imgs = np.stack([make_speckle(rng, shape=(48, 64), grain_px=3.0) for _ in range(2)])
+    imgs[1, 2, 3] = np.nan
+    z = t_pc.zscore2d(t(imgs))
+    for k in range(2):
+        close(z[k], j_pc.zscore2d(jnp.asarray(imgs[k])))
+    tpl = np.zeros((48, 64))
+    tpl[10:30, 20:44] = imgs[0, 12:32, 18:42]
+    surf = t_pc.phase_corr_surface(z[:1], t(tpl)[None])[0]
+    ref = j_pc.phase_corr_surface(jnp.asarray(z[0].numpy()), jnp.asarray(tpl))
+    close(surf, ref)
+    i, j = t_pc.argmax2d(surf)
+    peak, snr = t_pc.peak_quality(surf, i, j)
+    rpeak, rsnr = j_pc.peak_quality(ref, int(i), int(j))
+    close(peak, rpeak)
+    close(snr, rsnr)
+
+
+@pytest.mark.parametrize("shape", [(96, 96), (80, 100)])
+def test_grain_core_with_map(rng, shape):
+    from barc4dip_tpu.metrics import estimators as j_est
+    from barc4dip_tpu_torch.metrics import estimators as t_est
+
+    imgs = np.stack([make_speckle(rng, shape=shape, grain_px=4.0) for _ in range(2)])
+    got = t_est.grain_core(t(imgs))
+    maps = t_est.grain_map_core(t(imgs))
+    assert torch.equal(maps, got["autocorr"])
+    for k in range(2):
+        ref = j_est.grain_core(jnp.asarray(imgs[k]))
+        for key in ("lx", "ly", "leq", "r", "autocorr"):
+            close(got[key][k], ref[key])
+        close(got["xlag"], ref["xlag"])
+        close(got["ylag"], ref["ylag"])
+        close(maps[k], j_est.grain_map_core(jnp.asarray(imgs[k])))
+    assert set(t_est.grain_core(t(imgs), with_map=False)) == {"lx", "ly", "leq", "r"}

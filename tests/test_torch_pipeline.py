@@ -7,7 +7,10 @@ chunks of 2 frames).
   of the leaf's scale, and the tracking geometry identical;
 - uint16 stack, float32 on both sides: the bench's value-gate semantics at
   rtol 1e-4 (a ``std`` leaf against its parent's scale, SNRdB in absolute
-  dB), and the abs trajectory within 0.05 px of the known motion.
+  dB), and the abs trajectory within 0.05 px of the known motion;
+- a grid of dtypes, display origins, tiling and metric subsets with chunks
+  that do not divide T (tolerances in the test);
+- ``mesh``, the one option not ported, raises.
 """
 import numpy as np
 import pytest
@@ -50,6 +53,9 @@ def _compare(out, ref, rtol, gate_semantics):
     got = {}
     want = {}
     for sec in ("full", "tiles", "temporal"):
+        assert (sec in out) == (sec in ref), sec
+        if sec not in ref:
+            continue
         got.update({f"{sec}.{p}": v for p, v in _leaves(out[sec]) if "qc" not in p})
         want.update({f"{sec}.{p}": v for p, v in _leaves(ref[sec]) if "qc" not in p})
     assert set(got) == set(want)
@@ -119,20 +125,66 @@ def test_tracking_grid_matches_jax(stacks):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(grain_maps=True), dict(mesh=object()), dict(checkpoint_dir="x"),
+    [dict(), dict(grain_maps=True), dict(checkpoint_dir=True),
      dict(tracking_search_radius=8.0), dict(tracking_method="phase")],
 )
-def test_uncovered_arguments_raise(stacks, kwargs):
+def test_uncovered_arguments_raise(stacks, kwargs, tmp_path):
+    """``mesh`` is the one option not ported: it raises, alone or beside any
+    other option, before any work (no checkpoint file is written)."""
     st = stacks[np.float64]
-    kw = {**KW, **kwargs}
+    kw = {**KW, **kwargs, "mesh": object()}
+    if kw.get("checkpoint_dir"):
+        kw["checkpoint_dir"] = tmp_path / "ckpt"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdip.speckle_stack_stats(st, device="cpu", **kw)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_bad_input_raises(stacks):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdip.speckle_stack_stats(torch.zeros(2, 128, 128), **KW)
+    with pytest.raises(TypeError):
+        tdip.speckle_stack_stats([[[1.0]]], **KW)
+    with pytest.raises(ValueError):
+        tdip.speckle_stack_stats(torch.zeros(128, 128), **KW)
     with pytest.raises(ValueError):
         tdip.speckle_stack_stats(np.zeros((128, 128)), **KW)
     with pytest.raises(ValueError):
         tdip.speckle_stack_stats(stacks[np.float64], tracking_method="optical", **KW)
+    with pytest.raises(TypeError, match="uint64"):
+        tdip.speckle_stack_stats(torch.zeros(2, 128, 128, dtype=torch.uint64), **KW)
+
+
+@pytest.fixture(scope="module")
+def grid_stacks():
+    kw = dict(seed=np.random.default_rng(1), mean_counts=8000.0)
+    return {dt: speckle_stack(5, (SIDE, SIDE), dtype=dt, **kw) for dt in (np.float64, np.float32, np.uint16)}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.uint16])
+@pytest.mark.parametrize("origin", ["upper", "lower"])
+@pytest.mark.parametrize("metrics,tiles", [("all", True), (["grain"], False),
+                                           ("amplitude,stats", True), ("bandwidth", False)])
+def test_options_grid_matches_jax(grid_stacks, dtype, origin, metrics, tiles):
+    """Both packages across dtypes, display origins, tiling and metric
+    subsets, with chunks of 2 that do not divide T = 5: the metric leaves
+    at rtol 1e-8 (float64) or the bench gate's 1e-4 (float32 compute); the
+    trajectories at 1e-8 of their scale (float64), else within 5e-3 px of
+    the JAX package's and 1e-4 px of the port's own float64 run."""
+    st = grid_stacks[dtype]
+    kw = dict(metrics=metrics, tiles=tiles, display_origin=origin, grain_maps=False,
+              frame_chunk=2, verbose=False)
+    out = tdip.speckle_stack_stats(st, device="cpu", **kw)
+    ref = jdip.speckle_stack_stats(st, **kw)
+    assert out["meta"].keys() == ref["meta"].keys()
+    if dtype == np.float64:
+        _compare(out, ref, rtol=1e-8, gate_semantics=False)
+        return
+    metric_out = {k: v for k, v in out.items() if k != "temporal"}
+    metric_ref = {k: v for k, v in ref.items() if k != "temporal"}
+    _compare({**metric_out, "temporal": {}}, {**metric_ref, "temporal": {}}, rtol=1e-4,
+             gate_semantics=True)
+    own64 = tdip.speckle_stack_stats(st.astype(np.float64), device="cpu", **kw)
+    for blk in ("abs", "inc"):
+        for c in ("dy", "dx"):
+            got = out["temporal"][blk][c]
+            np.testing.assert_allclose(got, ref["temporal"][blk][c], rtol=0, atol=5e-3)
+            np.testing.assert_allclose(got, own64["temporal"][blk][c], rtol=0, atol=1e-4)

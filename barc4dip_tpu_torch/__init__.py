@@ -14,9 +14,27 @@ tracking, checkpoints) with kernel K1 (``ops/cuda_fftp.py`` +
 ``preprocessing`` (flat-field with bad-pixel repair, kernel K2 in
 ``ops/cuda_median.py`` + ``csrc/median3x3.cu``), ``signal`` (dense
 tracking, kernel K3 in ``ops/cuda_densetrack.py`` +
-``csrc/densetrack_sums.cu``), ``maths`` and ``models``. See ROADMAP.md.
+``csrc/densetrack_sums.cu``), ``maths`` and ``models``; and the sharpness
+API (``sharpness_stats``, ``sharpness_stack_stats``, the five standalone
+estimators, ``models.SharpnessScanPipeline``), whose autocorrelation group
+runs kernel K1a, with ``report.logbook_report``. See ROADMAP.md.
 """
 from . import config
-from .metrics import distribution_moments, speckle_stack_stats, speckle_stats
+from .metrics import (
+    distribution_moments,
+    sharpness_stack_stats,
+    sharpness_stats,
+    speckle_stack_stats,
+    speckle_stats,
+)
+from .report import logbook_report
 
-__all__ = ["config", "distribution_moments", "speckle_stack_stats", "speckle_stats"]
+__all__ = [
+    "config",
+    "distribution_moments",
+    "logbook_report",
+    "sharpness_stack_stats",
+    "sharpness_stats",
+    "speckle_stack_stats",
+    "speckle_stats",
+]

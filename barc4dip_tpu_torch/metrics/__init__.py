@@ -1,5 +1,14 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Speckle metrics of the PyTorch port."""
+"""Speckle and sharpness metrics of the PyTorch port."""
+from .sharpness import (
+    eigenvalues,
+    inverse_autocorr_width,
+    laplacian_variance,
+    sharpness_stack_stats,
+    sharpness_stats,
+    spectral_entropy,
+    tenengrad,
+)
 from .speckles import (
     amplitude,
     bandwidth,
@@ -14,8 +23,15 @@ __all__ = [
     "amplitude",
     "bandwidth",
     "distribution_moments",
+    "eigenvalues",
     "grain",
+    "inverse_autocorr_width",
+    "laplacian_variance",
+    "sharpness_stack_stats",
+    "sharpness_stats",
     "speckle_stack_stats",
     "speckle_stats",
+    "spectral_entropy",
+    "tenengrad",
     "tracking_grid_from_frame0",
 ]

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Display origin, group selection, the tiling policy with its batched
-tile executor, the tile schema and the stack chunk layout (counterpart of
-``barc4dip_tpu/metrics/common.py``).
+tile executor, the tile schema, the stack chunk layout and the chunk loop
+of a per-frame program (counterpart of ``barc4dip_tpu/metrics/common.py``).
 
 Tiles are cut with static slices and grouped into equal-shape buckets
 (split_edges gives at most two sizes per axis); each bucket becomes one
@@ -11,6 +11,11 @@ The port's stack loop runs uniform chunks of ``frame_chunk`` frames. The
 JAX package ramps its first and last chunks on one device; both layouts
 give equal results (``tests/test_aggregators.py``,
 ``test_ramped_chunk_schedule_matches_single_chunk``).
+
+:func:`run_stack_program` is the port's own chunk loop, not a translation:
+the JAX package's padded uploads, prefetch pool and chunk ramp answer a
+hosted link and fixed compiled shapes, which a card on the host's own bus
+and eager PyTorch do not have.
 """
 from __future__ import annotations
 
@@ -22,22 +27,32 @@ from typing import Callable, Literal, Sequence
 import numpy as np
 import torch
 
+from ..config import resolve_device, to_compute, upload
+
 __all__ = [
     "TILE_GRID_SHAPE_3X3",
     "TILE_LABELS_3X3",
     "TILE_ORDER",
+    "aggregate_subtiles_9x9_to_3x3",
     "apply_display_origin",
     "choose_tiling_mode",
     "chunk_layout_signature",
+    "frame_loader",
     "nan_std_grid_3x3",
     "normalize_display_origin",
     "normalize_groups",
+    "pack_leaves",
     "pack_mean_std",
+    "run_stack_program",
     "split_edges",
+    "stack_time_series",
     "subtile_grids_to_3x3_device",
     "tile_plan",
+    "tiled_scalar_fields",
     "tiled_scalar_fields_device",
     "tiles_meta",
+    "unflatten_leaves",
+    "unpack_leaves",
 ]
 
 TILE_GRID_SHAPE_3X3: tuple[int, int] = (3, 3)
@@ -135,6 +150,15 @@ def pack_mean_std(mean, std) -> dict:
     return {"mean": np.asarray(mean, dtype=float), "std": np.asarray(std, dtype=float)}
 
 
+def aggregate_subtiles_9x9_to_3x3(sub) -> tuple[np.ndarray, np.ndarray]:
+    """Aggregate a 9x9 grid into 3x3 mean/std blocks (population std)."""
+    arr = np.asarray(sub, dtype=float)
+    if arr.shape != (9, 9):
+        raise ValueError("Expected subtiles grid of shape (9, 9).")
+    blocks = arr.reshape(3, 3, 3, 3).transpose(0, 2, 1, 3).reshape(3, 3, 9)
+    return blocks.mean(axis=-1), blocks.std(axis=-1, ddof=0)
+
+
 def chunk_layout_signature(T: int, frame_chunk: int) -> tuple:
     """Chunk starts of the port's stack loop over T frames: uniform chunks
     of ``frame_chunk`` (at most T) frames. Part of a checkpoint's
@@ -189,6 +213,184 @@ def subtile_grids_to_3x3_device(grids: dict) -> dict:
         blocks = g.reshape(*lead, 3, 3, 3, 3).transpose(-3, -2).reshape(*lead, 3, 3, 9)
         out[k] = {"mean": blocks.mean(-1), "std": blocks.std(-1, correction=0)}
     return out
+
+
+def tiled_scalar_fields(
+    image,
+    *,
+    tile_mode: Literal["tiles_3x3", "subtiles_9x9"],
+    compute_fn: Callable[[torch.Tensor], dict],
+) -> dict[str, dict[str, np.ndarray]]:
+    """Host-facing generic tiling executor (reference-compatible signature).
+
+    ``compute_fn`` receives one (th, tw) tile as a tensor and returns a
+    dict of scalars (tensors or numbers); it is called tile by tile, where
+    the JAX package vmaps it. ``image`` is a numpy array or a tensor, which
+    stays on its device. Returns ``{field: {"mean": grid3x3, "std":
+    grid3x3}}`` as NumPy."""
+    img = image if isinstance(image, torch.Tensor) else torch.as_tensor(np.asarray(image))
+    if img.ndim != 2:
+        raise ValueError(f"tiled_scalar_fields expects a 2D array, got ndim={img.ndim}")
+
+    def scalar(v, like):
+        if isinstance(v, torch.Tensor):
+            return v.to(like.device)
+        return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+    def batch_fn(batch):
+        rows = [compute_fn(tile) for tile in batch]
+        return {k: torch.stack([scalar(r[k], batch) for r in rows]) for k in rows[0]}
+
+    if tile_mode == "tiles_3x3":
+        grids = tiled_scalar_fields_device(img, n=3, compute_fn=batch_fn)
+        nan_std = nan_std_grid_3x3()
+        return {k: pack_mean_std(v.cpu().numpy(), nan_std) for k, v in grids.items()}
+    if tile_mode == "subtiles_9x9":
+        grids = tiled_scalar_fields_device(img, n=9, compute_fn=batch_fn)
+        return {
+            k: pack_mean_std(*aggregate_subtiles_9x9_to_3x3(sub.cpu().numpy()))
+            for k, sub in grids.items()
+        }
+    raise ValueError("tile_mode must be 'tiles_3x3' or 'subtiles_9x9'.")
+
+
+# ---------------------------------------------------------------------------
+# Chunked stack execution
+# ---------------------------------------------------------------------------
+
+def frame_loader(stack, device=None):
+    """(device, load): ``load(c0, c1)`` gives frames [c0, c1) of a host
+    stack or a tensor stack as a compute-dtype tensor on ``device``. A
+    tensor stack stays on its own device."""
+    if isinstance(stack, torch.Tensor):
+        return stack.device, lambda c0, c1: to_compute(stack[c0:c1])
+    device = resolve_device(device)
+    return device, lambda c0, c1: upload(stack[c0:c1], device)
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}\0")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def unflatten_leaves(flat: dict) -> dict:
+    """{path: leaf} with NUL-separated paths -> the nested tree."""
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("\0")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def pack_leaves(tree: dict, n: int, dtype):
+    """Every leaf of a tree of (n, ...) tensors as one (n, L) tensor of
+    ``dtype``, and the (path, shape) spec that :func:`unpack_leaves` reads."""
+    spec, cols = [], []
+    for path, v in _leaves(tree):
+        spec.append((path, tuple(v.shape)))
+        cols.append(v.reshape(n, -1).to(dtype))
+    return torch.cat(cols, dim=1), spec
+
+
+def unpack_leaves(flat: np.ndarray, spec) -> dict:
+    """The {path: array} leaves of a :func:`pack_leaves` vector on the host."""
+    out, off = {}, 0
+    for path, shape in spec:
+        k = int(np.prod(shape[1:], dtype=np.int64))
+        out[path] = flat[:, off : off + k].reshape(shape)
+        off += k
+    return out
+
+
+def run_stack_program(
+    stack, program, *, frame_chunk: int = 4, flip: bool = False, mesh=None,
+    checkpoint=None, device=None,
+):
+    """Run a per-frame metric program over a (T, H, W) stack in uniform
+    chunks of ``frame_chunk`` frames (:func:`chunk_layout_signature`; the
+    last chunk holds what is left).
+
+    ``program`` maps (B, H, W) frames in their compute dtype to a tree of
+    (B, ...) tensors. A numpy stack's chunks are uploaded in their own
+    dtype from pinned memory without blocking; a tensor stack is sliced on
+    its own device with no upload. Integer frames are cast on the device,
+    and with ``flip`` the rows are reversed there. Each chunk's results
+    leave the device as one vector, pulled one chunk behind, so the host
+    unpacks chunk k while chunk k+1 runs. ``checkpoint`` is a
+    :class:`..utils.checkpoint.ChunkStore`: chunks it holds are loaded, the
+    others run and are saved.
+
+    Returns the program's tree with a leading T axis, as NumPy."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_stack_program: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
+        )
+    device, load = frame_loader(stack, device)
+    T = int(stack.shape[0])
+    pieces: dict[int, dict] = {}
+    pending = None
+
+    def collect(host, ready, spec, c0):
+        if ready is not None:
+            ready.synchronize()
+        piece = unpack_leaves(host.numpy(), spec)
+        if checkpoint is not None:
+            checkpoint.save(c0, unflatten_leaves(piece))
+        pieces[c0] = piece
+
+    starts = chunk_layout_signature(T, frame_chunk)
+    for c0, c1 in zip(starts, (*starts[1:], T)):
+        if checkpoint is not None and checkpoint.has(c0):
+            pieces[c0] = dict(_leaves(checkpoint.load(c0)))
+            continue
+        frames = load(c0, c1)
+        if flip:
+            frames = torch.flip(frames, dims=[-2])
+        flat, spec = pack_leaves(program(frames), c1 - c0, frames.dtype)
+        if device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        else:
+            host, ready = flat, None
+        if pending is not None:
+            collect(*pending)
+        pending = (host, ready, spec, c0)
+    if pending is not None:
+        collect(*pending)
+
+    ordered = [pieces[c0] for c0 in sorted(pieces)]
+    return unflatten_leaves(
+        {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
+    )
+
+
+# ---------------------------------------------------------------------------
+# Time series stacking and group selection (host-side)
+# ---------------------------------------------------------------------------
+
+def stack_time_series(values: list):
+    """Stack per-frame outputs along a new leading time axis (recursive for
+    dicts; arrays and tensors via np.stack; scalars into a 1D array)."""
+    if not values:
+        raise ValueError("No values provided for stacking.")
+    v0 = values[0]
+    if isinstance(v0, dict):
+        return {k: stack_time_series([v[k] for v in values]) for k in v0.keys()}
+    if isinstance(v0, torch.Tensor):
+        return np.stack([v.detach().cpu().numpy() for v in values], axis=0)
+    if isinstance(v0, np.ndarray):
+        return np.stack([np.asarray(v) for v in values], axis=0)
+    if isinstance(v0, (float, int, np.floating, np.integer, bool, np.bool_)):
+        return np.asarray(values)
+    return list(values)
 
 
 def normalize_groups(

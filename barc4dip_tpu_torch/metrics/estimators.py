@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Speckle estimator cores (counterpart of the speckle half of
+"""Speckle and sharpness estimator cores (counterpart of
 ``barc4dip_tpu/metrics/estimators.py``).
 
 Each core takes a batch of images (..., h, w) and returns a dict of (...)
@@ -14,6 +14,7 @@ import torch
 
 from ..geometry.masks import square_embed_slices
 from ..ops.corrcore import autocorr2d_core
+from ..ops.eig import topk_eigvalsh_subspace
 from ..ops.fftcore import psd2d_core
 from ..ops.momentscore import distribution_moments_core, nanmean2d, nanstd2d
 from ..ops.quantile import nanpercentiles_exact
@@ -23,6 +24,8 @@ from ..ops.radialcore import (
     radial_mean_binned_core,
     radial_mean_interpolated_core,
 )
+from ..ops.stencils import laplace as laplace_op
+from ..ops.stencils import sobel_x, sobel_y
 from ..ops.widths import distance_at_fraction_core, width_at_fraction_core
 from ..signal.common import lag_axis_from_step
 
@@ -30,8 +33,13 @@ __all__ = [
     "amplitude_core",
     "bandwidth_core",
     "distribution_moments_core",
+    "eigenvalues_core",
     "grain_core",
     "grain_map_core",
+    "inverse_autocorr_width_core",
+    "laplacian_variance_core",
+    "spectral_entropy_core",
+    "tenengrad_core",
 ]
 
 _INV_E = float(1.0 / np.e)
@@ -63,6 +71,16 @@ def amplitude_core(img, *, p_low: float = 0.05, p_high: float = 99.95, integer_r
     )
     visibility = torch.where(mu > 0, visibility, np.nan)
     return {"visibility": visibility, "contrast": contrast}
+
+
+def _autocorr_widths(img, *, fraction: float, standardize: bool, radial_method: str):
+    """pad -> autocorrelation -> widths (see :func:`_widths_from_autocorr`).
+    Returns (lx, ly, leq, ac)."""
+    ac = autocorr2d_core(
+        _pad_to_square_mean(img), remove_mean=True, standardize=standardize, normalize="peak"
+    )
+    lx, ly, leq = _widths_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
+    return lx, ly, leq, ac
 
 
 def _widths_from_autocorr(ac, *, fraction: float, radial_method: str):
@@ -97,8 +115,9 @@ def grain_core(
     """Speckle grain sizes from the autocorrelation peak: lx, ly, leq and
     the anisotropy r = lx/ly, plus the peak-normalized autocorrelation map
     (..., N, N) and its lag axes (N,) unless ``with_map=False``."""
-    ac = grain_map_core(img)
-    lx, ly, leq = _widths_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
+    lx, ly, leq, ac = _autocorr_widths(
+        img, fraction=fraction, standardize=False, radial_method=radial_method
+    )
     r = torch.where(ly != 0, lx / torch.where(ly != 0, ly, 1.0), np.inf)
     out = {"lx": lx, "ly": ly, "leq": leq, "r": r}
     if with_map:
@@ -112,6 +131,26 @@ def grain_map_core(img):
     mean-padded square image, (..., N, N): what a lazy map leaf computes
     when it is read."""
     return autocorr2d_core(_pad_to_square_mean(img), remove_mean=True, normalize="peak")
+
+
+def inverse_autocorr_width_core(
+    img, *, fraction: float = _INV_E, radial_method: str = "interpolated"
+) -> dict:
+    """Sharpness from the inverse widths of the standardized
+    autocorrelation peak: sx, sy, seq = 1/lx, 1/ly, 1/leq (inf at width 0)
+    and the width-domain anisotropy r = lx/ly.
+
+    ``radial_method`` is honoured, as in the JAX package (the original
+    barc4dip routes "binned" to the interpolated estimator)."""
+    lx, ly, leq, _ = _autocorr_widths(
+        img, fraction=fraction, standardize=True, radial_method=radial_method
+    )
+
+    def _inv(v):
+        return torch.where(v != 0, 1.0 / torch.where(v != 0, v, 1.0), np.inf)
+
+    r = torch.where(ly != 0, lx / torch.where(ly != 0, ly, 1.0), np.inf)
+    return {"sx": _inv(lx), "sy": _inv(ly), "seq": _inv(leq), "r": r}
 
 
 def bandwidth_core(img) -> dict:
@@ -175,3 +214,96 @@ def _bandwidth_from_psd(P) -> dict:
     bad = ~(torch.isfinite(total) & (total > 0))
     out = {"feq": feq, "f95": f95, "sig_fx": sig_fx, "sig_fy": sig_fy, "rf": rf, "spr": spr}
     return {k: torch.where(bad, np.nan, v) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# sharpness operators
+# ---------------------------------------------------------------------------
+
+def _finite_count(img):
+    """(finite mask, number of finite pixels per image, at least 1)."""
+    finite = torch.isfinite(img)
+    return finite, finite.sum(dim=(-2, -1)).clamp(min=1).to(img.dtype)
+
+
+def tenengrad_core(img, *, eps: float = 1e-12) -> dict:
+    """(GRA6) Sobel gradient energy: ex, ey, their sum, anisotropy
+    ex/(ey+eps).
+
+    The mean runs over positions where the *input* is finite; NaNs in the
+    stencil output propagate as in NumPy."""
+    finite, n = _finite_count(img)
+    gx = sobel_x(img)
+    gy = sobel_y(img)
+    ex = torch.where(finite, gx * gx, 0.0).sum(dim=(-2, -1)) / n
+    ey = torch.where(finite, gy * gy, 0.0).sum(dim=(-2, -1)) / n
+    return {"tenengrad": ex + ey, "ex": ex, "ey": ey, "re": ex / (ey + eps)}
+
+
+def laplacian_variance_core(img) -> dict:
+    """(LAP4) Population variance of the Laplacian over the positions where
+    the input is finite."""
+    finite, n = _finite_count(img)
+    lap = laplace_op(img)
+    mean = torch.where(finite, lap, 0.0).sum(dim=(-2, -1)) / n
+    d = torch.where(finite, lap - mean[..., None, None], 0.0)
+    return {"laplacian_variance": (d * d).sum(dim=(-2, -1)) / n}
+
+
+def spectral_entropy_core(
+    img, *, remove_mean: bool = True, remove_dc: bool = True, eps: float = 1e-30
+) -> dict:
+    """Normalized Shannon entropy of the unpadded PSD: the plain mean is
+    removed (a NaN pixel gives NaN), the DC bin zeroed, probabilities
+    clipped at ``eps`` and the entropy divided by log(ny*nx - 1)."""
+    x = img
+    if remove_mean:
+        x = x - x.mean(dim=(-2, -1), keepdim=True)
+    P = psd2d_core(x, step_x=1.0, step_y=1.0, scale=False)
+    ny, nx = int(P.shape[-2]), int(P.shape[-1])
+    if remove_dc:
+        P[..., ny // 2, nx // 2] = 0.0
+    s = P.sum(dim=(-2, -1))
+    p = P.flatten(-2) / torch.where(s > 0, s, 1.0)[..., None]
+    M = (ny * nx - 1) if remove_dc else (ny * nx)
+    p = p.clamp(min=eps)
+    Hn = -(p * torch.log(p)).sum(-1) / float(np.log(float(M)))
+    return {"spectral_entropy": torch.where(s > 0, Hn, np.nan)}
+
+
+def eigenvalues_core(img, *, k: int = 5, eps: float = 1e-30, eig_method: str = "auto") -> dict:
+    """(STA2) Sum of the top-k eigenvalues of the image covariance, from
+    the (M, M) Gram matrix J J^T of the energy-normalized, mean-removed
+    image (its eigenvalues are the squared singular values of J), plus the
+    two largest (e1, e2) and e1/(e2+eps).
+
+    ``eig_method``: "auto" (subspace iteration from 1024 px, dense below),
+    "dense" (always ``eigvalsh``) or "subspace" (always iterative; see
+    :func:`..ops.eig.topk_eigvalsh_subspace` for its accuracy on flat
+    spectra). The Gram product is a plain matmul in the image's dtype (TF32
+    is off, :mod:`..config`)."""
+    if eig_method not in ("auto", "dense", "subspace"):
+        raise ValueError("eig_method must be 'auto', 'dense' or 'subspace'.")
+    energy = torch.sqrt((img * img).sum(dim=(-2, -1)))
+    x = img / torch.where(energy > 0, energy, 1.0)[..., None, None]
+    J = x - x.mean(dim=(-2, -1), keepdim=True)
+    M, N = int(J.shape[-2]), int(J.shape[-1])
+    bad = ~(torch.isfinite(energy) & (energy > 0))
+    # a non-finite image reads NaN below; its solve runs on zeros, because
+    # torch's eigen-solvers raise on non-finite input
+    G = torch.where(bad[..., None, None], 0.0, J @ J.mT)
+
+    n_eig = min(M, N)
+    k_use = min(int(k), n_eig)
+    k_want = max(k_use, 2)  # e1/e2 ride along even when k < 2
+    if eig_method == "subspace" or (eig_method == "auto" and n_eig >= 1024 and k_want <= 32):
+        ev = topk_eigvalsh_subspace(G, k_want)
+    else:
+        ev = torch.linalg.eigvalsh(G).flip(-1)[..., :k_want]
+    ev = (ev / float(M * N - 1)).clamp(min=0.0)
+
+    val = ev[..., :k_use].sum(-1)
+    e1 = ev[..., 0]
+    e2 = ev[..., 1] if ev.shape[-1] >= 2 else torch.zeros_like(e1)
+    out = {"eigenvalues": val, "e1": e1, "e2": e2, "re": e1 / (e2 + eps)}
+    return {key: torch.where(bad, np.nan, v) for key, v in out.items()}

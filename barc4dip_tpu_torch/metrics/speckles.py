@@ -432,7 +432,14 @@ def speckle_stack_stats(
     ``checkpoint_dir`` persists each chunk and resumes a rerun of the same
     call from the chunks on disk. ``grain_maps`` attaches the lazy per-frame
     autocorrelation maps. ``mesh`` is not ported and raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.
+
+    ``display_origin`` follows the JAX package's stack rule: rows flip (tile
+    grids and lazy maps) if and only if the argument equals ``"lower"``
+    exactly. It is not normalised here: ``"LOWER"``, ``" lower"`` or an
+    invalid value run unflipped and raise nothing, and ``meta`` and the
+    checkpoint configuration echo the argument as given. The single-image
+    ``speckle_stats`` normalises it, as the JAX package's does."""
     t0 = time.perf_counter()
     if not isinstance(stack, (np.ndarray, torch.Tensor)):
         raise TypeError("speckle_stack_stats expects a numpy.ndarray or a torch.Tensor")
@@ -466,9 +473,9 @@ def speckle_stack_stats(
         search_px = int(np.ceil(float(tracking_search_radius)))
     if mesh is not None:
         raise NotImplementedError(
-            "speckle_stack_stats: mesh is not ported yet (ROADMAP.md, Queue 1 item 12)"
+            "speckle_stack_stats: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
         )
-    flip = normalize_display_origin(display_origin) == "lower"
+    flip = display_origin == "lower"
 
     mode, _tile_shape = choose_tiling_mode(H, W, tiles=tiles, min_tile_px=MIN_TILE_PX)
     grid_slices, grid_labels, roi_side, step, grain0 = tracking_grid_from_frame0(

@@ -26,10 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_device, to_compute, upload
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
-from .common import apply_display_origin
+from .common import (
+    _leaves,
+    apply_display_origin,
+    frame_loader,
+    pack_leaves,
+    unflatten_leaves,
+    unpack_leaves,
+)
 from .speckles_device import int_value_hint, speckle_device_fn
 from .tracking_batch import _extract_tiles, _grid_geometry
 
@@ -40,16 +46,6 @@ __all__ = [
     "unflatten_leaves",
     "unpack_leaves",
 ]
-
-
-def frame_loader(stack, device=None):
-    """(device, load): ``load(c0, c1)`` gives frames [c0, c1) of a host
-    stack or a tensor stack as a compute-dtype tensor on ``device``. A
-    tensor stack stays on its own device."""
-    if isinstance(stack, torch.Tensor):
-        return stack.device, lambda c0, c1: to_compute(stack[c0:c1])
-    device = resolve_device(device)
-    return device, lambda c0, c1: upload(stack[c0:c1], device)
 
 
 def _search_windows(H: int, W: int, s: int, starts: np.ndarray, search: int):
@@ -162,46 +158,6 @@ def _track_phase(frames, prevs, tpl0, starts, s: int, subpixel: bool, eps: float
     dy_a, dx_a = shifts(tpl0)
     dy_i, dx_i = shifts(inc_bank)
     return dy_a, dx_a, dy_i, dx_i
-
-
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}\0")
-        else:
-            yield f"{prefix}{k}", v
-
-
-def unflatten_leaves(flat: dict) -> dict:
-    """{path: leaf} with NUL-separated paths -> the nested tree."""
-    out: dict = {}
-    for path, v in flat.items():
-        *parents, leaf = path.split("\0")
-        node = out
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return out
-
-
-def pack_leaves(tree: dict, n: int, dtype):
-    """Every leaf of a tree of (n, ...) tensors as one (n, L) tensor of
-    ``dtype``, and the (path, shape) spec that :func:`unpack_leaves` reads."""
-    spec, cols = [], []
-    for path, v in _leaves(tree):
-        spec.append((path, tuple(v.shape)))
-        cols.append(v.reshape(n, -1).to(dtype))
-    return torch.cat(cols, dim=1), spec
-
-
-def unpack_leaves(flat: np.ndarray, spec) -> dict:
-    """The {path: array} leaves of a :func:`pack_leaves` vector on the host."""
-    out, off = {}, 0
-    for path, shape in spec:
-        k = int(np.prod(shape[1:], dtype=np.int64))
-        out[path] = flat[:, off : off + k].reshape(shape)
-        off += k
-    return out
 
 
 _TRACK_KEYS = ("dy_a", "dx_a", "dy_i", "dx_i")

@@ -1,12 +1,12 @@
 # SPDX-License-Identifier: CECILL-2.1
 """End-to-end analysis pipelines (counterpart of
 ``barc4dip_tpu/models/pipeline.py``): dense XST wavefront sensing over a
-scan, flat-field plus speckle-stack analysis, and ``full_step_fn``, the
-flagship per-chunk step as one function on tensors.
+scan, the sharpness focus scan, flat-field plus speckle-stack analysis, and
+``full_step_fn``, the flagship per-chunk step as one function on tensors.
 
 Not ported yet, and raising ``NotImplementedError``: the file-driven entry
 points (``run_files``, ``run_edf_files``, ``run_hdf5``; ROADMAP.md Queue 1
-item 7). ``SharpnessScanPipeline`` waits for item 8.
+item 2).
 """
 from __future__ import annotations
 
@@ -15,19 +15,26 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
+from ..metrics.common import normalize_groups
 from ..metrics.estimators import amplitude_core, distribution_moments_core, grain_core
+from ..metrics.sharpness import _ALL_SHARPNESS_GROUPS, sharpness_stack_stats
 from ..metrics.speckles import speckle_stack_stats
 from ..metrics.tracking_batch import _extract_tiles
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
 from ..preprocessing.normalize import flat_field_correction
 
-__all__ = ["SpeckleStackPipeline", "WavefrontScanPipeline", "full_step_fn"]
+__all__ = [
+    "SharpnessScanPipeline",
+    "SpeckleStackPipeline",
+    "WavefrontScanPipeline",
+    "full_step_fn",
+]
 
 
 def _file_io_not_ported(name: str):
     return NotImplementedError(
-        f"{name}: reading frames from files is not ported yet (ROADMAP.md, Queue 1 item 7)"
+        f"{name}: reading frames from files is not ported yet (ROADMAP.md, Queue 1 item 2)"
     )
 
 
@@ -107,6 +114,62 @@ class WavefrontScanPipeline:
 
     def run_files(self, paths, reference_path=None, *, verbose: bool = False) -> dict:
         raise _file_io_not_ported("WavefrontScanPipeline.run_files")
+
+
+class SharpnessScanPipeline:
+    """Focus-scan workflow: run sharpness metrics over a scan stack and
+    pick the best-focus frame by a chosen focus operator."""
+
+    def __init__(
+        self,
+        *,
+        metrics: str | Sequence[str] = "gradient,laplacian",
+        focus_metric: tuple[str, str] = ("gradient", "tenengrad"),
+        tiles: bool = False,
+        frame_chunk: int = 8,
+        mesh=None,
+    ):
+        self.metrics = metrics
+        self.focus_metric = focus_metric
+        self.tiles = tiles
+        self.frame_chunk = frame_chunk
+        self.mesh = mesh
+
+    def __call__(self, stack, *, verbose: bool = False, checkpoint_dir=None) -> dict:
+        # the focus operator is checked before the scan runs: a focus group
+        # outside the selected metrics would fail only afterwards, and lose
+        # the results
+        group, key = self.focus_metric
+        selected = normalize_groups(
+            self.metrics, all_groups=_ALL_SHARPNESS_GROUPS,
+            context="sharpness", param_name="metrics",
+        )
+        if group not in selected:
+            raise ValueError(
+                f"focus_metric group {group!r} is not among the selected "
+                f"metrics {sorted(selected)}"
+            )
+        out = sharpness_stack_stats(
+            stack if isinstance(stack, (np.ndarray, torch.Tensor)) else np.asarray(stack),
+            metrics=self.metrics,
+            tiles=self.tiles,
+            frame_chunk=self.frame_chunk,
+            mesh=self.mesh,
+            verbose=verbose,
+            checkpoint_dir=checkpoint_dir,
+        )
+        series = np.asarray(out["full"][group][key], dtype=float)
+        degenerate = bool(np.all(np.isnan(series)))
+        out["meta"]["focus"] = {
+            "metric": f"{group}.{key}",
+            "best_frame": None if degenerate else int(np.nanargmax(series)),
+            "series_min": float("nan") if degenerate else float(np.nanmin(series)),
+            "series_max": float("nan") if degenerate else float(np.nanmax(series)),
+        }
+        return out
+
+    def run_files(self, paths, *, verbose: bool = False, checkpoint_dir=None) -> dict:
+        raise _file_io_not_ported("SharpnessScanPipeline.run_files")
 
 
 class SpeckleStackPipeline:

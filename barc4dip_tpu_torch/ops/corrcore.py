@@ -24,11 +24,23 @@ def _finalize(corr, normalize: str):
     raise ValueError(f"Invalid normalize='{normalize}'. Use 'none' or 'peak'.")
 
 
-def autocorr2d_core(a, *, remove_mean: bool = True, normalize: str = "peak"):
-    """fftshifted circular autocorrelation of real (..., H, W) images,
-    ``irfft2(|rfft2(a)|^2)``: exactly real by construction."""
+def _precondition(a, remove_mean: bool, standardize: bool):
+    """Per image: subtract the mean, then divide by the population std
+    where that is > 0."""
     if remove_mean:
         a = a - a.mean(dim=(-2, -1), keepdim=True)
+    if standardize:
+        s = a.std(dim=(-2, -1), correction=0, keepdim=True)
+        a = torch.where(s > 0, a / torch.where(s > 0, s, 1.0), a)
+    return a
+
+
+def autocorr2d_core(
+    a, *, remove_mean: bool = True, standardize: bool = False, normalize: str = "peak"
+):
+    """fftshifted circular autocorrelation of real (..., H, W) images,
+    ``irfft2(|rfft2(a)|^2)``: exactly real by construction."""
+    a = _precondition(a, remove_mean, standardize)
     H, W = a.shape[-2], a.shape[-1]
     lead = a.shape[:-2]
     F = torch.fft.rfft2(a.reshape(-1, H, W))

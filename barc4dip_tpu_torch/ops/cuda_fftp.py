@@ -15,8 +15,12 @@ Wh = W//2 + 1. ``G`` holds the template spectra, (K, H, Wh) for a bank
 shared by every image or (NF, K, H, Wh) for one bank per image. Results are
 (K, H, W) for a 2-D ``F``, else (NF, K, H, W).
 
-Dispatch mirrors the TPU gate (``use and supported(shape) and dtype ==
-f32``) and is decided from shape and dtype before any launch:
+Dispatch is decided from device, shape and dtype before any launch, as the
+TPU gate is (``use and supported(shape) and dtype == f32``), but over a
+narrower set of shapes: the Pallas kernel takes H and W that are multiples
+of 128 in [128, 8192] (``pallas_fftp.supported``), this one only the powers
+of two in [128, 4096] (:func:`supported`). A 1536, 2560 or 3072 side, and
+any 8192 side, runs Pallas on a TPU and the plain version here:
 
 - a CPU tensor takes the plain PyTorch version;
 - a CUDA tensor of a covered shape (complex64 spectra, H and W powers of

@@ -135,7 +135,7 @@ def track_displacement_stack(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "track_displacement_stack: mesh= is not ported yet (ROADMAP.md, Queue 1 item 12)"
+            "track_displacement_stack: mesh= is not ported yet (ROADMAP.md, Queue 1 item 6)"
         )
     if not isinstance(stack, torch.Tensor):
         stack = np.asarray(stack)

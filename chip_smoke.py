@@ -13,7 +13,10 @@ Phases, one line each with its wall time:
    ``barc4dip_tpu_torch`` from this checkout into ``build/kernels/``, one
    ``nvcc`` per source, all started together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
-   at the main path's shapes (2048^2 frames, 29-px templates), timed with
+   at the main paths' shapes (2048^2 frames, 29-px templates; K1a on 1 and
+   4 mean-removed frames as the speckle path sends them, and on 1, 2, 3 and
+   8 standardized frames: the sharpness path's image, chunks and tail),
+   timed with
    CUDA events (median of 10 single calls) beside the library call (cuFFT's
    irfft2 of the products formed beforehand), then all three split by
    kernel: the device time of each pass from 10 calls under torch.profiler,
@@ -47,10 +50,24 @@ Phases, one line each with its wall time:
    frames 1-4 against their predecessors) on the card: K1a launches;
    metrics at rtol 1e-4 and shifts within 0.05 px of its float64 run,
    shifts within 0.05 px of the known motion;
-9. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
+9. sharpness: ``sharpness_stats`` on frame 0 (uint16, all six groups, 9x9
+   subtiles), run twice, the second counted and timed: one K1a for the
+   full frame's standardized autocorrelation, ``PLAIN_BY_SHAPE`` growing
+   only by the subtile shapes; every leaf against a float64 run on the card
+   (rtol 1e-4) and ``eigenvalues`` (subspace iteration at 2048^2, batched
+   dense on the tiles) against ``eig_method="dense"``; Config A,
+   ``logbook_report(sharpness_stats(frame 0, verbose=False))``, timed;
+   ``sharpness_stack_stats`` on frames 0-7 at ``frame_chunk`` 8 and 3 (a
+   tail), as a numpy stack and as a CUDA tensor: one K1a a chunk, the
+   tensor runs exactly equal to the numpy runs, every frame of both chunk
+   sizes within 1e-5 of its own single-image call, a checkpointed rerun that launches nothing and equals
+   the first; ``SharpnessScanPipeline`` at its defaults on a through-focus
+   scan (frame 0 blurred on the host by a Gaussian whose width is zero at a
+   known frame): that frame is ``meta["focus"]["best_frame"]``;
+10. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
    a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
    shift, as raw uint16 with flats, darks and 0.1% dead pixels;
-10. kernels-2: K2 against its plain version on the flat-field's own input
+11. kernels-2: K2 against its plain version on the flat-field's own input
     at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
     plain version at Config F (33-px tiles, step 16, radius 10: 15,625
     nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
@@ -59,7 +76,7 @@ Phases, one line each with its wall time:
     mostly the wrapper's host cost; its device time and queued time per call
     stand beside it), K3 beside the library call for its numerator (one
     grouped cuDNN ``conv2d``, TF32 off);
-11. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
+12. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
     ``WavefrontScanPipeline`` on the card, run twice; the second run is
     counted and timed, and one ``track_displacement_field`` at Config F is
     timed. Checks the K2/K3 launch counts (no uncovered call), the
@@ -68,9 +85,10 @@ Phases, one line each with its wall time:
     card, the per-frame tracking medians against the known motion
     (<= 0.05 px) and the wavefront against the parabola (relative error
     < 0.15, curvature radius within 10%);
-12. with ``--profile``: the metric step and the tracker of one Config D
-    chunk timed apart, then the Config D slice and one XST pass under
-    torch.profiler (device busy time, device time by op and kernel).
+13. with ``--profile``: the metric step and the tracker of one Config D
+    chunk timed apart, then the Config D slice, the single-image sharpness
+    call (whole, then group by group) and one XST pass under torch.profiler
+    (device busy time, device time by op and kernel).
 
 Every time printed names the card and its power limit (the nvidia-smi
 line, printed first and again before the result); the kernel phases also
@@ -82,7 +100,8 @@ as one JSON line: a row per kernel and shape with ``max_abs_err``,
 output must move at 3.35 TB/s and the float32 operations these inputs need
 at 67 TFLOP/s, the published H100 SXM peaks), ``library_ms`` (null for K2,
 which has no one-call equivalent) and ``launches`` (the counted run of its
-path), after a line of K1 launches by path. Then, as its last line,
+path: Config D for K1, with ``launches_sharpness`` beside it; for a
+standardized K1a row the sharpness path named in its ``path``), after a line of K1 launches by path. Then, as its last line,
 ``{"ok": true, "device": {...}}`` for the one card it used. Any failed
 phase exits non-zero. Imports nothing of JAX.
 """
@@ -118,6 +137,11 @@ WAVEFRONT_REL, RADIUS_REL = 0.15, 0.10
 OPT_T, OPT_RADIUS, WINDOW_ATOL_PX = 8, 16, 1e-3
 PHASE_SIDE, PHASE_GRAIN_PX, PHASE_GATE_PX = 512, 6.0, 0.5
 FULL_STEP_B = 4
+# the sharpness slice: the stack call on frames 0..SHARP_T-1 at its default
+# chunk and at one that leaves a tail; a through-focus scan of SCAN_T frames
+# whose blur (SCAN_SIGMA_STEP px a frame) is zero at frame SCAN_BEST
+SHARP_T, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_FRAME_RTOL = 8, 8, 3, 1e-5
+SCAN_T, SCAN_BEST, SCAN_SIGMA_STEP = 6, 4, 0.8
 # published H100 SXM peaks at 700 W: device memory, float32 outside the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
@@ -353,38 +377,42 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     """K1a and K1b against their plain versions at the main path's shapes."""
     from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
-    from barc4dip_tpu_torch.ops import cuda_fftp, ncc
+    from barc4dip_tpu_torch.ops import corrcore, cuda_fftp, ncc
     from barc4dip_tpu_torch.ops.phasecorr import argmax2d
 
-    frames = upload(stack[:FRAME_CHUNK], dev)
+    frames = upload(stack[:max(FRAME_CHUNK, SHARP_T)], dev)
     H, W = frames.shape[-2:]
     rows = []
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
 
-    # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core)
-    for nf in (1, FRAME_CHUNK):
-        a = frames[:nf] - frames[:nf].mean(dim=(-2, -1), keepdim=True)
-        Fa = torch.fft.rfft2(a)
+    # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core): the
+    # speckle path's batches of mean-removed frames, then the sharpness
+    # path's of standardized ones (one image, a chunk, a tail chunk and what
+    # it leaves over)
+    sharp_sizes = sorted({1, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_T % SHARP_TAIL_CHUNK} - {0})
+    for nf, standardize in [(n, False) for n in (1, FRAME_CHUNK)] + [(n, True) for n in sharp_sizes]:
+        label = f"B={nf} standardized" if standardize else f"B={nf}"
+        Fa = torch.fft.rfft2(corrcore._precondition(frames[:nf], True, standardize))
         got = cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W))
         want = cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         if not err <= KERNEL_ATOL_REL * scale:
-            raise AssertionError(f"K1a B={nf}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
+            raise AssertionError(f"K1a {label}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
         ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
         plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
         # the library call: cuFFT's irfft2 of the product formed beforehand
         prod = Fa[:, None] * Fa[:, None].conj()
         library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
-        log(f"K1a corr_from_rfft planes={nf} {H}x{W}: max_abs_err {err:.3e} "
+        log(f"K1a corr_from_rfft {label} {H}x{W}: max_abs_err {err:.3e} "
             f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library irfft2 {library_ms:.3f} ms; {card}")
         device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
         log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
         log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
         flops = nf * (6 * Fa.shape[-2] * Fa.shape[-1] + fft_flops(H * W))
-        rows.append({"name": f"corr_from_rfft B={nf}", "route": "cuda",
+        rows.append({"name": f"corr_from_rfft {label}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
@@ -394,7 +422,7 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     # templates against later frames
     bank = ncc.prep_template(_extract_tiles(frames[0], starts, s), H, W)
     for nf in (1, FRAME_CHUNK):
-        prep = ncc.zncc_prepare_image(frames[FRAME_CHUNK - nf:], s, s, eps=1e-9)
+        prep = ncc.zncc_prepare_image(frames[FRAME_CHUNK - nf:FRAME_CHUNK], s, s, eps=1e-9)
         var_full = torch.nn.functional.pad(prep["var_sum"], (0, s - 1, 0, s - 1))
         args = (prep["F"], bank["Ft"], var_full, bank["energy"])
         kw = dict(valid_hw=(H - s + 1, W - s + 1), eps=1e-9, s=(H, W))
@@ -608,7 +636,8 @@ def _data_leaves(out: dict) -> dict:
             leaves[path] = np.asarray(node)
 
     for sec in ("full", "tiles", "temporal"):
-        walk(sec, out[sec])
+        if sec in out:
+            walk(sec, out[sec])
     return leaves
 
 
@@ -784,6 +813,203 @@ def run_full_step(torch, dev, stack, starts, s: int, card: str) -> dict:
         raise AssertionError(f"full_step_fn: launches {launches}, metrics {m_err:.3e}, shifts {s_err:.3e}, "
                              f"motion {t_err:.4f}")
     return {"launches": launches}
+
+
+# -- the sharpness slice --------------------------------------------------------
+
+def make_focus_scan(frame: np.ndarray) -> np.ndarray:
+    """A through-focus series on the host: ``frame`` blurred by a Gaussian
+    of SCAN_SIGMA_STEP * |t - SCAN_BEST| px, back in the frame's dtype."""
+    from scipy import ndimage
+
+    base = frame.astype(np.float32)
+    return np.stack([
+        frame if t == SCAN_BEST
+        else np.rint(ndimage.gaussian_filter(base, SCAN_SIGMA_STEP * abs(t - SCAN_BEST))).astype(frame.dtype)
+        for t in range(SCAN_T)
+    ])
+
+
+def run_sharpness(torch, dev, stack, card: str) -> dict:
+    """The sharpness API on the card (see the module docstring, phase 9)."""
+    import tempfile
+
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.models import SharpnessScanPipeline
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    frame = stack[0]
+    H, W = frame.shape
+    one_k1a = {"cols": 1, "rows": 1, "rows_ncc": 0}
+    res: dict = {}
+
+    # one image, all six groups, 9x9 subtiles
+    kw = dict(metrics="all", tiles=True, verbose=False, device=dev)
+    port.sharpness_stats(frame, **kw)
+    cuda_fftp.reset_counts()
+    t0 = time.perf_counter()
+    out = port.sharpness_stats(frame, **kw)  # returns host floats: synchronised
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    log(f"sharpness_stats {frame.shape} {frame.dtype}, six groups, 9x9 subtiles: {ms:.2f} ms (counted "
+        f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
+    if launches != one_k1a:
+        raise AssertionError(f"sharpness_stats launched K1 {launches}: one K1a wanted")
+    if not set(plain) <= subtile_plain_keys(H, W):
+        raise AssertionError(f"unexpected plain-path shapes {sorted(plain)}")
+    if sorted(out["full"]) != sorted(port.metrics.sharpness._ALL_SHARPNESS_GROUPS) or \
+            out["meta"]["tile_mode"] != "subtiles_9x9":
+        raise AssertionError(f"sharpness_stats: groups {sorted(out['full'])}, mode {out['meta'].get('tile_mode')}")
+    res["sharpness_stats"] = launches
+    res["single_ms"] = ms
+
+    ref = port.sharpness_stats(frame.astype(np.float64), **kw)
+    leaves = metric_leaves(out)
+    worst, err, n = compare_leaves(leaves, metric_leaves(ref))
+    log(f"sharpness_stats vs float64 run on the card: {n} leaves, max rel err {err:.3e} on {worst} "
+        f"(rtol {RTOL:g})")
+    if not (n == len(leaves) and err <= RTOL):
+        raise AssertionError(f"sharpness_stats float64 check: {n}/{len(leaves)} leaves, {worst} {err:.3e}")
+
+    # the eigenvalues group: subspace iteration at 2048^2 against the dense solve
+    from barc4dip_tpu_torch.metrics import eigenvalues
+
+    t0 = time.perf_counter()
+    dense = eigenvalues(frame, eig_method="dense", device=dev)
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    e_err = max(abs(out["full"]["eigenvalues"][k] - v) / abs(v) for k, v in dense.items())
+    log(f"eigenvalues: subspace iteration (auto at {H} px) within {e_err:.3e} of eig_method='dense' "
+        f"({dense_ms:.1f} ms for that one call; rtol {RTOL:g})")
+    if not e_err <= RTOL:
+        raise AssertionError(f"eigenvalues: subspace vs dense {e_err:.3e} > {RTOL:g}")
+
+    # Config A of bench_configs.py: the report of the call at its defaults
+    port.logbook_report(port.sharpness_stats(frame, verbose=False, device=dev))
+    cuda_fftp.reset_counts()
+    t0 = time.perf_counter()
+    report = port.logbook_report(port.sharpness_stats(frame, verbose=False, device=dev))
+    a_ms = (time.perf_counter() - t0) * 1e3
+    res["config A"] = dict(cuda_fftp.LAUNCHES)
+    log(f"Config A logbook_report(sharpness_stats(frame)): {a_ms:.2f} ms (counted run), report of "
+        f"{len(report.splitlines())} lines; K1 launches {json.dumps(res['config A'])}; {card}")
+    if res["config A"] != one_k1a or len(report.splitlines()) < 10 or "harpness" not in report:
+        raise AssertionError(f"Config A: launches {res['config A']}, report {report[:200]!r}")
+    res["config_a_ms"] = a_ms
+
+    # the stack call: numpy and CUDA-tensor stacks, two chunk sizes, checkpoints
+    sub = stack[:SHARP_T]
+    st = torch.from_numpy(sub).to(dev)
+    skw = dict(metrics="all", tiles=True, verbose=False)
+
+    def counted(source, chunk, **extra):
+        cuda_fftp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = port.sharpness_stack_stats(source, frame_chunk=chunk, **skw, **extra)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+
+    def want_chunks(chunk):
+        n = -(-SHARP_T // chunk)
+        return {"cols": n, "rows": n, "rows_ncc": 0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first, _, _, _ = counted(sub, SHARP_CHUNK, device=dev, checkpoint_dir=tmp)  # also the warm-up
+        n_files = len(list(Path(tmp).glob("*.npz")))
+        host, host_s, launches, plain = counted(sub, SHARP_CHUNK, device=dev)
+        resumed, _, ck_launches, _ = counted(sub, SHARP_CHUNK, device=dev, checkpoint_dir=tmp)
+    mp = SHARP_T * H * W / 1e6
+    log(f"sharpness_stack_stats {sub.shape} {sub.dtype}, frame_chunk {SHARP_CHUNK}: counted run "
+        f"{host_s:.3f} s = {SHARP_T / host_s:.2f} frames/s = {mp / host_s:.2f} MP/s; K1 launches "
+        f"{json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
+    if launches != want_chunks(SHARP_CHUNK) or not set(plain) <= subtile_plain_keys(H, W):
+        raise AssertionError(f"sharpness stack: K1 launches {launches}, plain {sorted(plain)}")
+    res["sharpness stack"] = launches
+    res["stack_s"] = host_s
+    for sec, shape in (("full", (SHARP_T,)), ("tiles", (SHARP_T, 3, 3))):
+        for path, leaf in _data_leaves({sec: host[sec]}).items():
+            if leaf.shape != shape or (sec == "full" and not np.isfinite(leaf).all()):
+                raise AssertionError(f"sharpness stack {path}: shape {leaf.shape} or non-finite values")
+    worst, d = max_leaf_diff(resumed, first)
+    worst2, d2 = max_leaf_diff(host, first)
+    log(f"checkpoint: {n_files} chunk files; the resumed run launched K1 {json.dumps(ck_launches)} and "
+        f"differs from the first by {d:.3e} (worst {worst}); the run without a checkpoint by {d2:.3e}")
+    if n_files != -(-SHARP_T // SHARP_CHUNK) or any(ck_launches.values()) or d != 0.0 or d2 != 0.0:
+        raise AssertionError(f"sharpness checkpoint: {n_files} files, launches {ck_launches}, diffs {d:.3e} {d2:.3e}")
+    res["sharpness checkpoint resumed"] = ck_launches
+
+    tail, tail_s, tail_launches, _ = counted(sub, SHARP_TAIL_CHUNK, device=dev)
+    dev_out, dev_s, dev_launches, _ = counted(st, SHARP_CHUNK)
+    dev_tail, _, dev_tail_launches, _ = counted(st, SHARP_TAIL_CHUNK)
+    worst, d = max_leaf_diff(dev_out, host)
+    worst_t, d_t = max_leaf_diff(dev_tail, tail)
+    log(f"frame_chunk {SHARP_TAIL_CHUNK} (a tail of {SHARP_T % SHARP_TAIL_CHUNK}): {tail_s:.3f} s, K1 launches "
+        f"{json.dumps(tail_launches)}; the stack as a CUDA tensor: {dev_s:.3f} s = {mp / dev_s:.2f} MP/s, "
+        f"K1 launches {json.dumps(dev_launches)} / {json.dumps(dev_tail_launches)}; tensor vs numpy "
+        f"stack max |diff| {d:.3e} (worst {worst}) / {d_t:.3e} (worst {worst_t}); {card}")
+    if tail_launches != want_chunks(SHARP_TAIL_CHUNK) or dev_launches != want_chunks(SHARP_CHUNK) \
+            or dev_tail_launches != want_chunks(SHARP_TAIL_CHUNK):
+        raise AssertionError(f"sharpness stack launches: {tail_launches} {dev_launches} {dev_tail_launches}")
+    if d != 0.0 or d_t != 0.0:
+        raise AssertionError(f"tensor stack differs from the numpy stack: {worst} {d:.3e}, {worst_t} {d_t:.3e}")
+    res[f"sharpness stack chunk {SHARP_TAIL_CHUNK}"] = tail_launches
+    res["sharpness stack resident"] = dev_launches
+    res["resident_s"] = dev_s
+    # every frame of the stack runs against its own single-image call
+    singles = [leaves] + [metric_leaves(port.sharpness_stats(sub[t], **kw)) for t in range(1, SHARP_T)]
+    per_frame = {k: np.stack([one[k] for one in singles]) for k in leaves}
+    for label, run in ((f"chunk {SHARP_CHUNK}", host), (f"chunk {SHARP_TAIL_CHUNK}", tail)):
+        worst, err, n = compare_leaves(metric_leaves(run, SHARP_T), per_frame)
+        log(f"frames 0-{SHARP_T - 1} of the stack call ({label}) vs {SHARP_T} single-image calls: {n} "
+            f"leaves, max rel err {err:.3e} on {worst} (rtol {SHARP_FRAME_RTOL:g}: float32 sums over "
+            f"another batch shape)")
+        if not (n == len(leaves) and err <= SHARP_FRAME_RTOL):
+            raise AssertionError(f"stack frames vs single-image calls ({label}): {worst} {err:.3e}")
+
+    # the focus scan at the pipeline's defaults
+    scan = make_focus_scan(frame)
+    pipe = SharpnessScanPipeline()
+    pipe(scan)
+    cuda_fftp.reset_counts()
+    t0 = time.perf_counter()
+    focus = pipe(scan)
+    scan_s = time.perf_counter() - t0
+    res["sharpness scan"] = dict(cuda_fftp.LAUNCHES)
+    series = focus["full"]["gradient"]["tenengrad"]
+    log(f"SharpnessScanPipeline (gradient,laplacian; focus gradient.tenengrad) on {scan.shape} "
+        f"{scan.dtype}: {scan_s:.3f} s = {SCAN_T / scan_s:.2f} frames/s; best_frame "
+        f"{focus['meta']['focus']['best_frame']} (blur zero at {SCAN_BEST}); tenengrad "
+        f"{np.array2string(series, precision=4)}; K1 launches {json.dumps(res['sharpness scan'])}; {card}")
+    if focus["meta"]["focus"]["best_frame"] != SCAN_BEST or any(res["sharpness scan"].values()):
+        raise AssertionError(f"focus scan: {focus['meta']['focus']}, launches {res['sharpness scan']}")
+    res["scan_s"] = scan_s
+    return res
+
+
+def profile_sharpness(torch, dev, stack) -> None:
+    """The single-image sharpness call under torch.profiler: whole, then
+    each group alone (full frame plus tiles): wall time and device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import barc4dip_tpu_torch as port
+
+    frame = stack[0]
+    kw = dict(tiles=True, verbose=False, device=dev)
+    port.sharpness_stats(frame, **kw)
+    profiled(torch, "sharpness_stats (six groups, 9x9 subtiles)", lambda: port.sharpness_stats(frame, **kw))
+    for group in ("stats", "gradient", "laplacian", "spectral", "autocorrelation", "eigenvalues"):
+        port.sharpness_stats(frame, metrics=group, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            port.sharpness_stats(frame, metrics=group, **kw)
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        log(f"  sharpness group {group}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
+            f"{sum(e.self_device_time_total for e in kernels) / 1e3:.2f} ms in "
+            f"{sum(e.count for e in kernels)} kernels and copies")
 
 
 def profile_slice(torch, dev, stack) -> None:
@@ -1137,7 +1363,12 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
-        log(f"torch {torch.__version__} cuda {torch.version.cuda}; device 0: {name}")
+        smi_version = subprocess.run(
+            ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+        log(f"torch {torch.__version__} cuda {torch.version.cuda}, driver_version {smi_version}; "
+            f"device 0: {name}")
         log(smi)
     card = f"card: {smi}"
     dev = torch.device("cuda", 0)
@@ -1185,9 +1416,13 @@ def main() -> int:
 
     with Phase("full-step"):
         full_step = run_full_step(torch, dev, stack, starts, s, card)
+
+    with Phase("sharpness"):
+        sharp = run_sharpness(torch, dev, stack, card)
     by_path = {"slice": res["launches"], "slice map reads": res["map_launches"],
                "speckle_stats": single["launches"], "speckle_stats map read": single["map_launches"],
-               "resident": resident["launches"], **options, "full_step_fn": full_step["launches"]}
+               "resident": resident["launches"], **options, "full_step_fn": full_step["launches"],
+               **{k: v for k, v in sharp.items() if isinstance(v, dict)}}
     log(f"K1 launches by path (counted runs): {json.dumps(by_path)}")
 
     with Phase("data-xst"):
@@ -1204,6 +1439,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         with Phase("profile"):
             profile_slice(torch, dev, stack)
+            profile_sharpness(torch, dev, stack)
             profiled(torch, "xst pass (upload, flat-field, wavefront scan)", xst["one_pass"])
 
     for row in rows:
@@ -1214,6 +1450,12 @@ def main() -> int:
         else:
             key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
             row["launches"] = res["launches"][key]
+            row["launches_sharpness"] = sharp["sharpness_stats"][key]
+            if row["name"].endswith("standardized"):  # a shape of the sharpness paths only
+                nf = int(row["name"].split("=")[1].split()[0])
+                row["path"] = ("sharpness_stats" if nf == 1 else "sharpness stack" if nf == SHARP_CHUNK
+                               else f"sharpness stack chunk {SHARP_TAIL_CHUNK}")
+                row["launches"] = sharp[row["path"]][key]
     if "jax" in sys.modules or "barc4dip_tpu" in sys.modules:
         raise RuntimeError("the port pulled in jax or the JAX package")
     log(smi)

@@ -46,6 +46,23 @@ def test_corr_from_rfft_matches_plain(dev, h, w, nf):
     assert float((got - want).abs().max()) <= ATOL_REL * float(want.abs().max())
 
 
+@pytest.mark.parametrize("nf", [1, 2, 3, 8])
+def test_corr_from_rfft_standardized_batches_match_plain(dev, nf):
+    """The sharpness path's batches (one image, a chunk of 8, a tail chunk
+    of 3 and its remainder of 2) of standardized 2048^2 frames, every plane
+    against the plain version at the same bound."""
+    from barc4dip_tpu_torch.ops import corrcore
+
+    F = torch.fft.rfft2(corrcore._precondition(_frames(dev, nf, 2048), True, True))
+    cuda_fftp.reset_counts()
+    got = cuda_fftp.corr_from_rfft(F, F[:, None], s=(2048, 2048))
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0}
+    want = cuda_fftp.corr_from_rfft_plain(F, F[:, None], s=(2048, 2048))
+    torch.cuda.synchronize()
+    for k in range(nf):
+        assert float((got[k] - want[k]).abs().max()) <= ATOL_REL * float(want[k].abs().max()), k
+
+
 @pytest.mark.parametrize("side, nf, shared", [(256, 2, True), (256, 2, False), (2048, 1, True)])
 def test_ncc_masked_peaks_matches_plain(dev, side, nf, shared):
     frames = _frames(dev, nf + 1, side)
@@ -281,3 +298,81 @@ def test_ncc_sums_uncovered_geometry_is_counted(dev):
     cuda_densetrack.ncc_sums(frames[0], frames[1], y0s, x0s, 201, 20)
     assert cuda_densetrack.LAUNCHES == {"ncc_sums": 0}
     assert cuda_densetrack.PLAIN_BY_SHAPE == {"ncc_sums:s201r20:float32": 1}
+
+
+# -- the sharpness path on the card -------------------------------------------
+
+@pytest.mark.parametrize("side, launches, plain", [
+    (2048, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
+    (512, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
+    (1536, {"cols": 0, "rows": 0, "rows_ncc": 0}, {"corr:1536x1536:complex64": 1}),
+])
+def test_sharpness_autocorrelation_launches_k1a(dev, side, launches, plain):
+    """The ``autocorrelation`` group of a CUDA frame runs its one
+    standardized autocorrelation through K1a where the kernel covers the
+    side, and through the plain version, counted, where it does not; the
+    widths agree with the plain version's at rtol 1e-5 (float32 round-off
+    of a 1/e crossing)."""
+    from barc4dip_tpu_torch.metrics import estimators, sharpness_stats
+
+    frame = _frames(dev, 1, side)[0]
+    cuda_fftp.reset_counts()
+    out = sharpness_stats(frame, metrics="autocorrelation", tiles=False, verbose=False)
+    assert cuda_fftp.LAUNCHES == launches
+    assert cuda_fftp.PLAIN_BY_SHAPE == plain
+    d = frame - frame.mean()
+    d = d / d.std(correction=0)
+    F = torch.fft.rfft2(d)
+    ac = torch.fft.fftshift(cuda_fftp.corr_from_rfft_plain(F, F[None], s=(side, side))[0])
+    lx, ly, leq = estimators._widths_from_autocorr(
+        ac / ac.abs().max(), fraction=float(1 / np.e), radial_method="interpolated")
+    got = out["full"]["autocorrelation"]
+    for key, want in (("sx", 1 / float(lx)), ("sy", 1 / float(ly)), ("seq", 1 / float(leq))):
+        assert got[key] == pytest.approx(want, rel=1e-5), key
+
+
+@pytest.mark.parametrize("name", ["sobel_x", "sobel_y", "laplace"])
+def test_stencils_float32_against_float64(dev, name):
+    """Nine float32 terms of a frame of ~8000 counts: within 1e-6 of the
+    output's scale of the float64 result (nothing here can run at TF32)."""
+    from barc4dip_tpu_torch.ops import stencils
+
+    frame = _frames(dev, 1, 1024)[0]
+    got = getattr(stencils, name)(frame).double()
+    want = getattr(stencils, name)(frame.double())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("side", [227, 2048])
+def test_gram_product_is_not_tf32(dev, side):
+    """The eigenvalues group's Gram product J J^T in float32 against
+    float64: within 1e-5 of its largest entry (float32 sums of ``side``
+    terms). At TF32 (10 mantissa bits) the same product is off by ~1e-3;
+    the test also shows that such a loss would be seen."""
+    frame = _frames(dev, 1, 2048)[0][:side, :side]
+    x = frame / torch.sqrt((frame * frame).sum())
+    J = x - x.mean()
+    want = J.double() @ J.double().mT
+    scale = float(want.abs().max())
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert float((J @ J.mT - want).abs().max()) <= 1e-5 * scale
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loose = float((J @ J.mT - want).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert loose > 1e-5 * scale
+
+
+@pytest.mark.parametrize("side, method", [(227, "dense"), (1024, "subspace"), (2048, "auto")])
+def test_eigenvalues_float32_against_float64(dev, side, method):
+    """Batched dense (cuSOLVER) and subspace eigenvalues in float32 against
+    a float64 dense solve on the card: rtol 1e-4, the metric value gate."""
+    from barc4dip_tpu_torch.metrics import estimators
+
+    frames = _frames(dev, 2, 2048)[:, :side, :side]
+    got = estimators.eigenvalues_core(frames, eig_method=method)
+    want = estimators.eigenvalues_core(frames.double(), eig_method="dense")
+    for key in ("eigenvalues", "e1", "e2", "re"):
+        rel = ((got[key].double() - want[key]).abs() / want[key].abs()).max()
+        assert float(rel) <= 1e-4, key

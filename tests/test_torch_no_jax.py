@@ -1,8 +1,9 @@
 # SPDX-License-Identifier: CECILL-2.1
 """The port stands without jax: importing it and driving it on the CPU (a
 tiny stack at the defaults, one lazy map read, a tensor stack,
-``speckle_stats``, ``full_step_fn`` and a tiny XST scan) pulls in neither
-jax nor the JAX package, and launches no kernel. ``chip_smoke.py`` needs a
+``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
+a focus scan and a report) pulls in neither jax nor the JAX package, and
+launches no kernel. ``chip_smoke.py`` needs a
 card, reports the one card it used, and reads lazy maps only by frame."""
 import importlib.util
 import subprocess
@@ -15,9 +16,11 @@ _PROBE = """
 import sys
 import numpy as np
 import barc4dip_tpu_torch as port
-from barc4dip_tpu_torch import maths, models, preprocessing, signal
+from barc4dip_tpu_torch import maths, models, preprocessing, report, signal
+from barc4dip_tpu_torch.metrics import sharpness
 from barc4dip_tpu_torch.ops import _nvcc, cuda_densetrack, cuda_fftp, cuda_median, densetrack, rank
-from barc4dip_tpu_torch.utils import dtype, range, speckle_stack
+from barc4dip_tpu_torch.ops import eig, stencils
+from barc4dip_tpu_torch.utils import dtype, range, speckle_stack, time
 
 import torch
 stack = speckle_stack(2, (128, 128), seed=3, dtype=np.uint16, mean_counts=4000.0)
@@ -42,6 +45,13 @@ assert np.all(np.isfinite(wf["wavefront"]))
 wf = models.WavefrontScanPipeline(pixel_size=1e-6, distance=0.5, tile_size=17, search_radius=4,
                                   method="pallas")(ff, ff[0])
 assert np.all(np.isfinite(wf["wavefront"]))
+sharp = port.sharpness_stats(stack[0], tiles=False, verbose=False, device="cpu")
+assert np.isfinite(sharp["full"]["autocorrelation"]["seq"])
+assert port.logbook_report(sharp).strip()
+assert sharpness.eigenvalues(stack[0], device="cpu")["e1"] > 0
+scan = models.SharpnessScanPipeline()(torch.from_numpy(stack))
+assert scan["meta"]["focus"]["best_frame"] in (0, 1)
+assert report.logbook_report(port.sharpness_stack_stats(stack, verbose=False, device="cpu")).strip()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
 assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES

@@ -262,21 +262,72 @@ def test_ncc_valid_and_masked_maps(rng):
 
 
 def test_phase_corr_surface_zscore_and_peak_quality(rng):
-    imgs = np.stack([make_speckle(rng, shape=(48, 64), grain_px=3.0) for _ in range(2)])
+    """``zscore2d`` (one frame holding a NaN), the phase-correlation
+    surface, ``argmax2d`` and ``peak_quality`` against the JAX package.
+
+    The whitening ``prod / (|prod| + eps)`` and the inverse transform are
+    held apart, because whitening is ill-conditioned where ``|prod|`` is
+    round-off: a z-scored image has a DC bin of ~1e-13, so ``|prod|`` there
+    is ~1e-7 against >= 1 elsewhere, and whitening scales the FFT library's
+    round-off in that bin up to order 1e-4 of a unit bin.
+
+    - On the same spectra (numpy's, given to both sides) both packages
+      whiten identical numbers and only the inverse differs: rtol 1e-9.
+      The JAX side is the package's own formula (``phasecorr.py``, the rfft2
+      branch of ``phase_corr_surface``), which has no entry point that takes
+      spectra.
+    - End to end each package transforms with its own FFT library. The
+      inverse is linear, so a difference ``d_k`` between the two whitened
+      spectra in bin k moves every pixel of the surface by at most
+      ``m_k * |d_k| / (H * W)``, where ``m_k`` is 1 for a bin of the
+      half-spectrum that is its own Hermitian mirror (columns 0 and W/2)
+      and 2 otherwise, and ``abs`` does not widen it. The test measures
+      ``d_k`` over the ill-conditioned bins (``|prod| < 1e3 * eps``; here
+      the DC bin alone) and allows their sum, beside rtol 1e-9 of the peak
+      for every other bin. ``peak`` is held to the same bound; ``snr =
+      |peak| / (median + eps)`` to its first-order propagation through the
+      numerator and the denominator.
+    """
+    eps = 1e-9
+    H, W = 48, 64
+    imgs = np.stack([make_speckle(rng, shape=(H, W), grain_px=3.0) for _ in range(2)])
     imgs[1, 2, 3] = np.nan
     z = t_pc.zscore2d(t(imgs))
     for k in range(2):
         close(z[k], j_pc.zscore2d(jnp.asarray(imgs[k])))
-    tpl = np.zeros((48, 64))
+    z0 = z[0].numpy()
+    tpl = np.zeros((H, W))
     tpl[10:30, 20:44] = imgs[0, 12:32, 18:42]
-    surf = t_pc.phase_corr_surface(z[:1], t(tpl)[None])[0]
-    ref = j_pc.phase_corr_surface(jnp.asarray(z[0].numpy()), jnp.asarray(tpl))
-    close(surf, ref)
-    i, j = t_pc.argmax2d(surf)
-    peak, snr = t_pc.peak_quality(surf, i, j)
-    rpeak, rsnr = j_pc.peak_quality(ref, int(i), int(j))
-    close(peak, rpeak)
-    close(snr, rsnr)
+
+    # the same spectra through both inverses
+    Fi, Ft = np.fft.rfft2(z0), np.fft.rfft2(tpl)
+    got = t_pc.phase_corr_from_spectra(t(Fi), t(Ft), s=(H, W), eps=eps)
+    jprod = jnp.asarray(Fi) * jnp.conj(jnp.asarray(Ft))
+    want = jnp.abs(jnp.fft.fftshift(
+        jnp.fft.irfft2(jprod / (jnp.abs(jprod) + eps), s=(H, W)), axes=(-2, -1)))
+    close(got, want)
+
+    # end to end, each side on its own FFT
+    surf = t_pc.phase_corr_surface(z[:1], t(tpl)[None], eps=eps)[0].numpy()
+    ref = np.asarray(j_pc.phase_corr_surface(jnp.asarray(z0), jnp.asarray(tpl), eps=eps))
+    tprod = (torch.fft.rfft2(z[0]) * torch.fft.rfft2(t(tpl)).conj()).numpy()
+    jprod = np.asarray(jnp.fft.rfft2(jnp.asarray(z0)) * jnp.conj(jnp.fft.rfft2(jnp.asarray(tpl))))
+    ill = (np.abs(tprod) < 1e3 * eps) | (np.abs(jprod) < 1e3 * eps)
+    assert 1 <= ill.sum() <= 2 and ill[0, 0]
+    d = np.abs(tprod / (np.abs(tprod) + eps) - jprod / (np.abs(jprod) + eps))
+    mult = np.full(ill.shape, 2.0)
+    mult[:, [0, W // 2]] = 1.0
+    atol = float((mult * d)[ill].sum()) / (H * W) + RTOL * float(ref.max())
+    assert atol < 1e-5 * ref.max()  # the bound stays far below the surface's scale
+    np.testing.assert_allclose(surf, ref, rtol=0, atol=atol)
+
+    i, j = t_pc.argmax2d(torch.from_numpy(surf))
+    assert (int(i), int(j)) == tuple(int(v) for v in j_pc.argmax2d(jnp.asarray(ref)))
+    peak, snr = t_pc.peak_quality(torch.from_numpy(surf), i, j, eps=eps)
+    rpeak, rsnr = (float(v) for v in j_pc.peak_quality(jnp.asarray(ref), int(i), int(j), eps=eps))
+    assert abs(float(peak) - rpeak) <= atol
+    background = rpeak / rsnr  # median|corr| + eps
+    assert abs(float(snr) - rsnr) <= rsnr * (atol / rpeak + atol / background) * (1 + 1e-6)
 
 
 @pytest.mark.parametrize("shape", [(96, 96), (80, 100)])

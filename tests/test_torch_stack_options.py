@@ -176,6 +176,38 @@ def test_phase_tracking_matches_jax():
     assert got["meta"]["tracking"]["method"] == "phase"
 
 
+# -- display origin -----------------------------------------------------------
+
+@pytest.mark.parametrize("origin", ["LOWER", " lower", "upper", "lower", "bogus"])
+def test_stack_display_origin_follows_jax_rule(origin, monkeypatch):
+    """The stack path flips rows if and only if ``display_origin ==
+    "lower"`` exactly: other spellings and invalid values run unflipped and
+    raise nothing, and ``meta`` echoes the argument as given. Tile grids
+    (3x3 tiles of a frame brighter at the top) and the lazy maps (frame 0
+    read) against the JAX package at rtol 1e-9."""
+    import barc4dip_tpu.metrics.speckles as j_speckles
+    import barc4dip_tpu_torch.metrics.speckles as t_speckles
+
+    monkeypatch.setattr(j_speckles, "MIN_TILE_PX", 40)
+    monkeypatch.setattr(t_speckles, "MIN_TILE_PX", 40)
+    ramp = np.linspace(2.0, 0.5, 160)[:, None] * np.linspace(1.0, 1.3, 160)[None, :]
+    stack = _spiral_stack(T=2) * ramp
+    kw = dict(metrics="grain,stats", display_origin=origin, verbose=False)
+    got = tm.speckle_stack_stats(stack, device="cpu", **kw)
+    want = jm.speckle_stack_stats(stack, **kw)
+    assert got["meta"]["display_origin"] == origin == want["meta"]["display_origin"]
+    assert "tiles" in got and "tiles" in want
+    mean = got["tiles"]["stats"]["mean"]["mean"]
+    top_first = mean[0, 0, 1] > mean[0, 2, 1]
+    assert top_first == (origin != "lower")
+    dg, dw = _data(got), _data(want)
+    assert dg.keys() == dw.keys()
+    for k, w in dw.items():
+        if k == "full.grain.autocorr":
+            dg[k], w = np.asarray(got["full"]["grain"]["autocorr"][0]), w[0]
+        np.testing.assert_allclose(dg[k], w, rtol=1e-9, atol=1e-12, err_msg=k)
+
+
 # -- checkpoints --------------------------------------------------------------
 
 def test_chunkstore_roundtrip_and_hash(tmp_path):

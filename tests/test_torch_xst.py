@@ -186,15 +186,15 @@ def test_validation_and_unported_entry_points():
         tsignal.track_displacement_stack(a)
     with pytest.raises(ValueError, match="ref shape"):
         tsignal.track_displacement_stack(np.zeros((2, 64, 64)), ref=a[:32])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tsignal.track_displacement_stack(np.zeros((2, 64, 64)), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, mesh=object())(
             np.zeros((2, 64, 64)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0).run_files(["a.tif"])
     for name in ("run_files", "run_edf_files", "run_hdf5"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             getattr(tmodels.SpeckleStackPipeline(), name)("a.h5")
     with pytest.raises(ValueError, match="positive"):
         tmodels.WavefrontScanPipeline(pixel_size=0.0, distance=1.0)

@@ -17,9 +17,19 @@ tracking, kernel K3 in ``ops/cuda_densetrack.py`` +
 ``csrc/densetrack_sums.cu``), ``maths`` and ``models``; and the sharpness
 API (``sharpness_stats``, ``sharpness_stack_stats``, the five standalone
 estimators, ``models.SharpnessScanPipeline``), whose autocorrelation group
-runs kernel K1a, with ``report.logbook_report``. See ROADMAP.md.
+runs kernel K1a, with ``report.logbook_report``; and the way in and out:
+``io`` (``read_image`` / ``write_image``, the EDF, TIFF and HDF5 readers and
+writers, the native C++ codec of ``native/dipio.cpp``), the pipelines'
+``run_files`` / ``run_edf_files`` / ``run_hdf5``, the console scripts
+``barc4dip-cuda-speckles`` (``report/cli.py``) and ``barc4dip-cuda-batch``
+(``report/batch_cli.py``), and ``utils/profiling.py``.
+
+Work runs on the card: ``device=None`` means cuda and raises where no card
+is available; ``device="cpu"`` (``--device cpu``) asks for the CPU. See
+ROADMAP.md for what is still to port.
 """
 from . import config
+from .io import read_image, write_image
 from .metrics import (
     distribution_moments,
     sharpness_stack_stats,
@@ -33,8 +43,10 @@ __all__ = [
     "config",
     "distribution_moments",
     "logbook_report",
+    "read_image",
     "sharpness_stack_stats",
     "sharpness_stats",
     "speckle_stack_stats",
     "speckle_stats",
+    "write_image",
 ]

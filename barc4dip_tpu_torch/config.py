@@ -1,8 +1,9 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Device and precision policy of the PyTorch port.
 
-- Work runs on an explicit ``device``; the default is ``cuda`` when a card
-  is present, else the CPU. A tensor input computes on its own device.
+- Work runs on an explicit ``device``. The default, ``None``, means the
+  card: without one it raises, and never runs on the CPU unasked. Pass
+  ``device="cpu"`` for the CPU. A tensor input computes on its own device.
 - The compute dtype follows the input: float64 stays float64, every other
   dtype (uint16 detector frames included) computes in float32, as
   ``barc4dip_tpu/metrics/stack_fused.py::_to_compute`` does. Integer
@@ -34,9 +35,16 @@ _UNSIGNED = {torch.uint16: (torch.int16, torch.int32), torch.uint32: (torch.int3
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; ``None`` means cuda when available."""
+    """``device`` as a torch.device. ``None`` means cuda, and raises
+    ``RuntimeError`` where no card is available: the CPU is never chosen
+    unasked."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available (torch.cuda.is_available() is False) and "
+                'none was asked for: pass device="cpu" to run on the CPU'
+            )
+        return torch.device("cuda")
     return torch.device(device)
 
 
@@ -56,8 +64,14 @@ def upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host frames -> device tensor in their compute dtype.
 
     The bytes travel in the frames' own dtype, from pinned memory without
-    blocking on a card; the cast happens on the device."""
-    t = torch.from_numpy(np.ascontiguousarray(frames))
+    blocking on a card; the cast happens on the device. Frames in the other
+    byte order (``EdfFile.GetData`` of a big-endian file, a big-endian HDF5
+    dataset) are swapped on the host first: torch takes native byte order
+    only."""
+    frames = np.ascontiguousarray(frames)
+    if not frames.dtype.isnative:
+        frames = frames.astype(frames.dtype.newbyteorder("="))
+    t = torch.from_numpy(frames)
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
     else:

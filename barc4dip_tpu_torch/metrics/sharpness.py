@@ -8,8 +8,8 @@ Focus-measure operators after Pertuz et al., Pattern Recognition 46(5) 2013
 spectral, autocorrelation, eigenvalues), the same ``meta`` / ``full`` /
 ``tiles`` dicts and the same tiling policy as the JAX package.
 
-Inputs are numpy arrays, which compute on ``device`` (default: cuda when
-present), or tensors, which compute on their own device. The tiles of each
+Inputs are numpy arrays, which compute on ``device`` (``None``: the card,
+and an error without one), or tensors, which compute on their own device. The tiles of each
 shape run as one batch per estimator. The ``autocorrelation`` group's
 standardized autocorrelation goes through ``ops.corrcore``, so through
 kernel K1a on a card for the shapes it covers.
@@ -433,8 +433,9 @@ def sharpness_stack_stats(
     """Per-frame sharpness metrics of a (T, H, W) numpy array or tensor,
     stacked along a leading time axis.
 
-    Frames run in chunks of ``frame_chunk`` on ``device`` (default: cuda
-    when present); a tensor stack runs on its own device without uploads.
+    Frames run in chunks of ``frame_chunk`` on ``device`` (``None``: the
+    card, and an error without one); a tensor stack runs on its own device
+    without uploads.
     ``parallel``/``n_jobs`` are accepted for API parity and echoed in
     ``meta``. ``checkpoint_dir`` persists each chunk and resumes a rerun of
     the same call from the chunks on disk. ``mesh`` is not ported and raises

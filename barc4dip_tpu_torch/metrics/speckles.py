@@ -5,8 +5,8 @@ estimators, and ``speckle_stack_stats``, per-frame metrics stacked over time
 plus abs/inc translation tracking of a central 3x3 ROI grid, with the same
 ``meta`` / ``full`` / ``tiles`` / ``temporal`` dicts.
 
-Inputs are numpy arrays, which compute on ``device`` (default: cuda when
-present), or tensors, which compute on their own device. Autocorrelation
+Inputs are numpy arrays, which compute on ``device`` (``None``: the card,
+and an error without one), or tensors, which compute on their own device. Autocorrelation
 maps are lazy leaves: a map is computed on that device from the caller's
 own frame, with the display-origin flip, only when it is read.
 """
@@ -423,8 +423,9 @@ def speckle_stack_stats(
     ("template" or "phase") of a central 3x3 ROI grid, for a (T, H, W)
     numpy array or tensor.
 
-    Frames run in chunks of ``frame_chunk`` on ``device`` (default: cuda
-    when present); a tensor stack runs on its own device without uploads.
+    Frames run in chunks of ``frame_chunk`` on ``device`` (``None``: the
+    card, and an error without one); a tensor stack runs on its own device
+    without uploads.
     ``parallel``/``n_jobs``/``tracking_backend`` are accepted for API
     parity. ``tracking_search_radius`` (px, template only) restricts each
     correlation to a window of that radius around the tile's home; the

@@ -4,9 +4,12 @@
 scan, the sharpness focus scan, flat-field plus speckle-stack analysis, and
 ``full_step_fn``, the flagship per-chunk step as one function on tensors.
 
-Not ported yet, and raising ``NotImplementedError``: the file-driven entry
-points (``run_files``, ``run_edf_files``, ``run_hdf5``; ROADMAP.md Queue 1
-item 2).
+Each pipeline takes ``device`` once, in its constructor (``None``: the card,
+and an error without one; ``"cpu"`` for the CPU), and hands it to every call
+it makes. The file-driven entry points (``run_files``, ``run_edf_files``,
+``run_hdf5``) stream frames from disk chunk by chunk through
+:class:`_FrameSequence` / :class:`_NdarrayView`; the one option that still
+raises ``NotImplementedError`` is ``mesh``.
 """
 from __future__ import annotations
 
@@ -32,12 +35,6 @@ __all__ = [
 ]
 
 
-def _file_io_not_ported(name: str):
-    return NotImplementedError(
-        f"{name}: reading frames from files is not ported yet (ROADMAP.md, Queue 1 item 2)"
-    )
-
-
 class WavefrontScanPipeline:
     """Dense XST wavefront sensing over a scan (see :mod:`..signal.xst`).
 
@@ -59,6 +56,7 @@ class WavefrontScanPipeline:
         subpixel: bool = True,
         method: str = "auto",
         mesh=None,
+        device=None,
     ):
         if pixel_size <= 0 or distance <= 0:
             raise ValueError("pixel_size and distance must be positive.")
@@ -71,6 +69,7 @@ class WavefrontScanPipeline:
         self.subpixel = bool(subpixel)
         self.method = str(method)
         self.mesh = mesh
+        self.device = device
 
     def __call__(self, stack, reference=None, *, verbose: bool = False) -> dict:
         from ..signal.xst import (
@@ -82,7 +81,7 @@ class WavefrontScanPipeline:
         kw = dict(
             tile_size=self.tile_size, step=self.step,
             search_radius=self.search_radius, subpixel=self.subpixel,
-            method=self.method,
+            method=self.method, device=self.device,
         )
         arr = stack if hasattr(stack, "ndim") else np.asarray(stack)
         if arr.ndim == 2:
@@ -113,7 +112,14 @@ class WavefrontScanPipeline:
         return out
 
     def run_files(self, paths, reference_path=None, *, verbose: bool = False) -> dict:
-        raise _file_io_not_ported("WavefrontScanPipeline.run_files")
+        """Wavefront scan from single-frame EDF/TIFF files (frames load
+        lazily per tracking call; the first file is the reference where no
+        ``reference_path`` is given)."""
+        from ..io import read_image
+
+        seq = _NdarrayView(_FrameSequence(list(paths)))
+        ref = None if reference_path is None else read_image(reference_path, verbose=False)
+        return self(seq, ref, verbose=verbose)
 
 
 class SharpnessScanPipeline:
@@ -128,12 +134,14 @@ class SharpnessScanPipeline:
         tiles: bool = False,
         frame_chunk: int = 8,
         mesh=None,
+        device=None,
     ):
         self.metrics = metrics
         self.focus_metric = focus_metric
         self.tiles = tiles
         self.frame_chunk = frame_chunk
         self.mesh = mesh
+        self.device = device
 
     def __call__(self, stack, *, verbose: bool = False, checkpoint_dir=None) -> dict:
         # the focus operator is checked before the scan runs: a focus group
@@ -157,6 +165,7 @@ class SharpnessScanPipeline:
             mesh=self.mesh,
             verbose=verbose,
             checkpoint_dir=checkpoint_dir,
+            device=self.device,
         )
         series = np.asarray(out["full"][group][key], dtype=float)
         degenerate = bool(np.all(np.isnan(series)))
@@ -169,14 +178,19 @@ class SharpnessScanPipeline:
         return out
 
     def run_files(self, paths, *, verbose: bool = False, checkpoint_dir=None) -> dict:
-        raise _file_io_not_ported("SharpnessScanPipeline.run_files")
+        """Out-of-core focus scan from a sequence of single-frame EDF/TIFF
+        files (frames load per chunk on demand; formats may be mixed)."""
+        return self(
+            _NdarrayView(_FrameSequence(paths)), verbose=verbose, checkpoint_dir=checkpoint_dir
+        )
 
 
 class SpeckleStackPipeline:
     """Flat-field + speckle-stack analysis as a single configured pipeline.
 
-    Parameters mirror :func:`..metrics.speckle_stack_stats`, whose options
-    that are not ported yet raise there.
+    Parameters mirror :func:`..metrics.speckle_stack_stats`; of them only
+    ``mesh`` is not ported, and raises there. ``device`` is where numpy
+    stacks, file frames and the flat-field run.
     """
 
     def __init__(
@@ -191,6 +205,7 @@ class SpeckleStackPipeline:
         mesh=None,
         display_origin: Literal["upper", "lower"] = "lower",
         tracking_search_radius: float | None = None,
+        device=None,
     ):
         self.metrics = metrics
         self.tiles = tiles
@@ -201,20 +216,11 @@ class SpeckleStackPipeline:
         self.mesh = mesh
         self.display_origin = display_origin
         self.tracking_search_radius = tracking_search_radius
+        self.device = device
 
-    def __call__(
-        self,
-        stack,
-        *,
-        flats=None,
-        darks=None,
-        verbose: bool = False,
-        checkpoint_dir=None,
-    ) -> dict:
-        if flats is not None or darks is not None:
-            stack = flat_field_correction(stack, flats=flats, darks=darks)
+    def _stats(self, stack, *, verbose: bool, checkpoint_dir) -> dict:
         return speckle_stack_stats(
-            stack if isinstance(stack, (np.ndarray, torch.Tensor)) else np.asarray(stack),
+            stack,
             metrics=self.metrics,
             tiles=self.tiles,
             tracking_method=self.tracking_method,
@@ -226,16 +232,156 @@ class SpeckleStackPipeline:
             verbose=verbose,
             checkpoint_dir=checkpoint_dir,
             tracking_search_radius=self.tracking_search_radius,
+            device=self.device,
+        )
+
+    def __call__(
+        self,
+        stack,
+        *,
+        flats=None,
+        darks=None,
+        verbose: bool = False,
+        checkpoint_dir=None,
+    ) -> dict:
+        if flats is not None or darks is not None:
+            stack = flat_field_correction(stack, flats=flats, darks=darks, device=self.device)
+        return self._stats(
+            stack if isinstance(stack, (np.ndarray, torch.Tensor)) else np.asarray(stack),
+            verbose=verbose, checkpoint_dir=checkpoint_dir,
         )
 
     def run_edf_files(self, paths, *, verbose: bool = False, checkpoint_dir=None) -> dict:
-        raise _file_io_not_ported("SpeckleStackPipeline.run_edf_files")
+        """Backwards-compatible alias of :meth:`run_files`."""
+        return self.run_files(paths, verbose=verbose, checkpoint_dir=checkpoint_dir)
 
     def run_files(self, paths, *, verbose: bool = False, checkpoint_dir=None) -> dict:
-        raise _file_io_not_ported("SpeckleStackPipeline.run_files")
+        """Out-of-core stack analysis from a sequence of single-frame
+        EDF/TIFF files (one frame per file, the standard beamline scan
+        layout; formats may be mixed)."""
+        return self._stats(
+            _NdarrayView(_FrameSequence(paths)), verbose=verbose, checkpoint_dir=checkpoint_dir
+        )
 
     def run_hdf5(self, path, *, verbose: bool = False, checkpoint_dir=None) -> dict:
-        raise _file_io_not_ported("SpeckleStackPipeline.run_hdf5")
+        """Out-of-core stack analysis straight from an ESRF-style HDF5 file.
+
+        The chunk loops only ever slice ``stack[c0:c1]`` / ``stack[t]``, so
+        the h5py dataset streams chunk by chunk from disk: stacks larger
+        than host RAM process in bounded memory (pair with
+        ``checkpoint_dir`` for resumable runs). The dataset's own dtype
+        reaches the loop (uint16 stays uint16).
+        """
+        from ..io.h5 import DATASET_PATH, _h5py
+
+        # No context manager: the returned dict can hold lazy map leaves
+        # that re-read frames when first read, so the file outlives this
+        # call (the handle closes when the last leaf is dropped).
+        f = _h5py().File(path, "r")
+        try:
+            dset = f[DATASET_PATH]
+            if dset.ndim != 3:
+                raise ValueError(
+                    f"expected a 3D (T, H, W) dataset at {DATASET_PATH}; "
+                    f"got shape {dset.shape}"
+                )
+            return self._stats(_NdarrayView(dset), verbose=verbose, checkpoint_dir=checkpoint_dir)
+        except Exception:
+            f.close()
+            raise
+
+
+class _FrameSequence:
+    """Lazy (T, H, W) frame source over a list of single-frame EDF/TIFF
+    files (dispatch by extension, file by file).
+
+    Frames load on demand through :func:`..io.read_edf` / ``read_tiff``
+    (both go through the native C++ codec when BARC4DIP_TORCH_NATIVE_IO=1)
+    and are cast to ``dtype``, float32 by default whatever the files hold,
+    so scan series of any length process in bounded memory. At most one
+    frame is cached.
+    """
+
+    def __init__(self, paths, *, dtype=np.float32):
+        from ..io import read_edf, read_tiff
+
+        self._paths = [str(p) for p in paths]
+        if not self._paths:
+            raise ValueError("empty frame path list")
+
+        def _read(p: str) -> np.ndarray:
+            if p.lower().endswith((".tif", ".tiff")):
+                return np.asarray(read_tiff(p), dtype=dtype)
+            return read_edf(p, dtype=dtype)
+
+        self._read = _read
+        first = self._read(self._paths[0])
+        if first.ndim != 2:
+            raise ValueError(f"expected 2D frames; got {first.shape}")
+        self._frame_shape = first.shape
+        self._dtype = first.dtype
+        self._cache = {0: first}
+
+    @property
+    def shape(self):
+        return (len(self._paths), *self._frame_shape)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def _frame(self, t: int) -> np.ndarray:
+        if t not in self._cache:
+            self._cache.clear()  # keep at most one cached frame
+            self._cache[t] = self._read(self._paths[t])
+        return self._cache[t]
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):
+            t, rest = key[0], key[1:]
+            if isinstance(t, (int, np.integer)):
+                frame = self._frame(int(t))
+                return frame[rest] if rest else frame
+            if rest:  # cropping while chunking: apply to each frame
+                if isinstance(t, slice):
+                    idx = range(*t.indices(len(self._paths)))
+                    return np.stack([self._frame(i)[rest] for i in idx])
+                raise TypeError(f"unsupported index {key!r}")
+            key = t  # (slice,) over frames: fall through
+        if isinstance(key, slice):
+            idx = range(*key.indices(len(self._paths)))
+            return np.stack([self._frame(t) for t in idx])
+        if isinstance(key, (int, np.integer)):
+            return self._frame(int(key))
+        raise TypeError(f"unsupported index {key!r}")
+
+
+class _NdarrayView(np.ndarray):
+    """Minimal ndarray subclass over a lazily sliced frame source (a
+    :class:`_FrameSequence`, an h5py dataset), so it passes the aggregators'
+    isinstance checks while every data access goes through the source's own
+    slicing. Its own buffer is empty: only ``shape``, ``ndim``, ``dtype``
+    and ``stack[c0:c1]`` / ``stack[t]`` mean anything."""
+
+    def __new__(cls, source):
+        obj = super().__new__(cls, shape=(0,), dtype=source.dtype)
+        obj._source = source
+        return obj
+
+    @property
+    def shape(self):  # type: ignore[override]
+        return tuple(self._source.shape)
+
+    @property
+    def ndim(self):  # type: ignore[override]
+        return len(self._source.shape)
+
+    @property
+    def dtype(self):  # type: ignore[override]
+        return np.dtype(self._source.dtype)
+
+    def __getitem__(self, key):
+        return np.asarray(self._source[key])
 
 
 def full_step_fn(roi_side: int, roi_starts: np.ndarray):

@@ -76,8 +76,9 @@ def grid_starts(
 
 
 def resolve_track_method(method: str = "auto", device=None) -> str:
-    """Resolve ``"auto"`` for the device the tracking runs on (default: the
-    default device): ``"pallas"`` on CUDA, ``"fft"`` on the CPU."""
+    """Resolve ``"auto"`` for the device the tracking runs on (``None``: the
+    card, and an error without one): ``"pallas"`` on CUDA, ``"fft"`` on the
+    CPU."""
     if method == "auto":
         method = "pallas" if resolve_device(device).type == "cuda" else "fft"
     if method not in ("pallas", "conv", "fft"):

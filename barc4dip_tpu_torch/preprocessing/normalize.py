@@ -64,6 +64,7 @@ def flat_field_correction(
     eps: float | None = None,
     verbose: bool = False,
     as_numpy: bool | None = None,
+    device=None,
 ):
     """Apply flat-field correction to a 2D image or (N, H, W) stack.
 
@@ -72,9 +73,9 @@ def flat_field_correction(
     -> zero dark.
 
     ``as_numpy=None`` keeps the result where the input lives: numpy in ->
-    numpy out, a tensor in -> a tensor out on its device (a numpy input
-    computes on the default device, cuda when present). Pass True/False to
-    force either residence.
+    numpy out, a tensor in -> a tensor out on its device. Pass True/False to
+    force either residence. A numpy input computes on ``device`` (``None``:
+    the card, and an error without one).
     """
     t0 = time.perf_counter()
     if scale not in {"none", "flat_mean", "flat_median"}:
@@ -90,7 +91,7 @@ def flat_field_correction(
         device = images.device
     else:
         img = torch.from_numpy(np.array(images, dtype=np.float32))
-        device = resolve_device(None)
+        device = resolve_device(device)
 
     def _reduce_stack(arr):
         if arr is None:

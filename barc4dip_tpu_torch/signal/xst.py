@@ -9,8 +9,9 @@ gives the wavefront. The tracking core is :mod:`..ops.densetrack` (kernel
 K3 on CUDA).
 
 Inputs may be numpy arrays or tensors. Tensors are tracked on their device;
-numpy frames are uploaded to the device of a tensor argument, else to the
-default device (cuda when present). Displacement results come back to the
+numpy frames are uploaded to the device of a tensor argument, else to
+``device`` (``None``: the card, and an error without one). Displacement
+results come back to the
 host as float32 numpy arrays.
 """
 from __future__ import annotations
@@ -33,11 +34,11 @@ __all__ = [
 ]
 
 
-def _device_of(*arrays) -> torch.device:
+def _device_of(device, *arrays) -> torch.device:
     for a in arrays:
         if isinstance(a, torch.Tensor):
             return a.device
-    return resolve_device(None)
+    return resolve_device(device)
 
 
 def _on(a, device: torch.device) -> torch.Tensor:
@@ -75,6 +76,7 @@ def track_displacement_field(
     subpixel: bool = True,
     eps: float = 1e-9,
     method: str = "auto",
+    device=None,
 ) -> dict:
     """Dense (dy, dx) displacement field of ``img`` relative to ``ref``.
 
@@ -93,7 +95,7 @@ def track_displacement_field(
             f"{tuple(img.shape)} vs {tuple(ref.shape)}"
         )
     H, W = (int(v) for v in img.shape)
-    device = _device_of(img, ref)
+    device = _device_of(device, img, ref)
     s, r, step = int(tile_size), int(search_radius), int(step)
     method = resolve_track_method(str(method), device)
     program, (y0s, x0s) = dense_track_program(H, W, s, r, step, bool(subpixel), method)
@@ -123,6 +125,7 @@ def track_displacement_stack(
     method: str = "auto",
     mesh=None,
     frame_batch: int = 4,
+    device=None,
 ) -> dict:
     """Dense displacement fields for every frame of a (T, H, W) stack.
 
@@ -137,7 +140,7 @@ def track_displacement_stack(
         raise NotImplementedError(
             "track_displacement_stack: mesh= is not ported yet (ROADMAP.md, Queue 1 item 6)"
         )
-    if not isinstance(stack, torch.Tensor):
+    if not hasattr(stack, "ndim"):  # a lazy frame view stays lazy
         stack = np.asarray(stack)
     if stack.ndim != 3:
         raise ValueError(f"stack must be 3D (T, H, W); got ndim={stack.ndim}")
@@ -145,7 +148,7 @@ def track_displacement_stack(
     ref = stack[0] if ref is None else ref
     if tuple(ref.shape) != (H, W):
         raise ValueError(f"ref shape {tuple(ref.shape)} != frame shape {(H, W)}")
-    device = _device_of(stack, ref)
+    device = _device_of(device, stack, ref)
     s, r, step, subpixel = int(tile_size), int(search_radius), int(step), bool(subpixel)
     eps = float(np.float32(eps))
     ref_dev = _on(ref, device)

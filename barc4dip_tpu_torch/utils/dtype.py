@@ -25,8 +25,11 @@ def to_uint16(
     median_size: int = 3,
     counts_threshold: float = 10.0,
     scaling: float = 1 / np.sqrt(2),
+    device=None,
 ) -> np.ndarray:
-    """Convert a 2D image or 3D stack to uint16 (a numpy array).
+    """Convert a 2D image or 3D stack to uint16 (a numpy array). A numpy
+    input that is not uint16 already computes on ``device`` (``None``: the
+    card, and an error without one), a tensor on its own device.
 
     Count-valued data (mean > counts_threshold) is clipped; normalised data
     is contrast-stretched to ``65535 * scaling`` via the robust filtered
@@ -34,7 +37,7 @@ def to_uint16(
     """
     if isinstance(data, np.ndarray) and data.dtype == np.uint16:
         return np.array(data)
-    arr = _as_tensor(data)
+    arr = _as_tensor(data, device)
     if arr.dtype == torch.uint16:
         return arr.cpu().numpy()
     if arr.dim() not in (2, 3):

@@ -64,10 +64,32 @@ Phases, one line each with its wall time:
    the first; ``SharpnessScanPipeline`` at its defaults on a through-focus
    scan (frame 0 blurred on the host by a Gaussian whose width is zero at a
    known frame): that frame is ``meta["focus"]["best_frame"]``;
-10. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
+10. files: files in, reports out. The 16 Config D frames written as uint16
+   EDF files (one a frame) with the port's ``save_edf`` into a temporary
+   directory; the seconds of reading them alone through the native codec
+   (``native/dipio.cpp``, built with g++ into ``build/native/``; the phase
+   fails with the compiler's words if it does not build) and through the
+   Python parser; ``SpeckleStackPipeline(frame_chunk=4).run_files`` run
+   twice, the second counted under ``StageTimer``: each file read once, K1
+   launches as the in-memory slice's, every leaf exactly equal to
+   ``speckle_stack_stats(stack.astype(float32))``, the 0.05 px gate, the
+   maps of frames 0-1 read after the call (two more K1a, two more file
+   reads), seconds and MP/s with the reads; the same run with
+   ``BARC4DIP_TORCH_NATIVE_IO=1``; frames 0-3 as baseline TIFFs (written
+   here with ``struct``) through ``read_tiff`` with the codec on and Pillow
+   hidden, and ``SharpnessScanPipeline().run_files`` on the focus scan
+   written the same way; where ``h5py`` imports, ``save_h5`` of frames 0-7
+   and ``run_hdf5`` exactly equal to the in-memory uint16 run;
+   ``report.cli.main`` on frame 0 (its stdout against the direct call's
+   report, one K1a); ``report.batch_cli.main`` on 8 files (JSON, ``.npz``
+   leaves equal to ``run_files``', report), the same as a subprocess with
+   no ``--device`` (same JSON, no kernel rebuilt, wall time apart) and with
+   a path that does not exist (exit code 2); one chunk under
+   ``device_trace`` (the trace names the K1 kernels);
+11. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
    a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
    shift, as raw uint16 with flats, darks and 0.1% dead pixels;
-11. kernels-2: K2 against its plain version on the flat-field's own input
+12. kernels-2: K2 against its plain version on the flat-field's own input
     at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
     plain version at Config F (33-px tiles, step 16, radius 10: 15,625
     nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
@@ -76,7 +98,7 @@ Phases, one line each with its wall time:
     mostly the wrapper's host cost; its device time and queued time per call
     stand beside it), K3 beside the library call for its numerator (one
     grouped cuDNN ``conv2d``, TF32 off);
-12. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
+13. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
     ``WavefrontScanPipeline`` on the card, run twice; the second run is
     counted and timed, and one ``track_displacement_field`` at Config F is
     timed. Checks the K2/K3 launch counts (no uncovered call), the
@@ -85,7 +107,10 @@ Phases, one line each with its wall time:
     card, the per-frame tracking medians against the known motion
     (<= 0.05 px) and the wavefront against the parabola (relative error
     < 0.15, curvature radius within 10%);
-13. with ``--profile``: the metric step and the tracker of one Config D
+14. files-xst: the corrected XST frames and reference written as float32
+    EDF files; ``WavefrontScanPipeline.run_files`` exactly equal to the
+    in-memory call on the same arrays, with the same K3 launches;
+15. with ``--profile``: the metric step and the tracker of one Config D
     chunk timed apart, then the Config D slice, the single-image sharpness
     call (whole, then group by group) and one XST pass under torch.profiler
     (device busy time, device time by op and kernel).
@@ -100,7 +125,8 @@ as one JSON line: a row per kernel and shape with ``max_abs_err``,
 output must move at 3.35 TB/s and the float32 operations these inputs need
 at 67 TFLOP/s, the published H100 SXM peaks), ``library_ms`` (null for K2,
 which has no one-call equivalent) and ``launches`` (the counted run of its
-path: Config D for K1, with ``launches_sharpness`` beside it; for a
+path: Config D for K1, with ``launches_sharpness`` and ``launches_files``
+(the run from EDF files) beside it; K3 with ``launches_files`` too; for a
 standardized K1a row the sharpness path named in its ``path``), after a line of K1 launches by path. Then, as its last line,
 ``{"ok": true, "device": {...}}`` for the one card it used. Any failed
 phase exits non-zero. Imports nothing of JAX.
@@ -109,6 +135,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -308,25 +335,32 @@ def queued_ms(torch, fn) -> float:
 
 def kernel_ms(torch, fn) -> dict:
     """Device time per call (ms) of each kernel ``fn`` launches, summed by
-    kernel name over REPEATS calls under torch.profiler."""
+    kernel name over REPEATS calls under torch.profiler. A window that comes
+    back with no device event (seen once, on a 0.2 ms window) is taken
+    again, twice at most; after that the time of the calls queued back to
+    back (CUDA events) stands in, under a name that says so."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
-            fn()
+    for _attempt in range(3):
         torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation or not e.self_device_time_total:
-            continue
-        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:60]
-        out[name] = out.get(name, 0.0) + e.self_device_time_total / REPEATS / 1e3
-    return out
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPEATS):
+                fn()
+            torch.cuda.synchronize()
+        out: dict = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation or not e.self_device_time_total:
+                continue
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / REPEATS / 1e3
+        if out:
+            return out
+        log("  torch.profiler recorded no device time in this window: taking it again")
+    return {"queued back to back (CUDA events: the profiler recorded no device time)": queued_ms(torch, fn)}
 
 
 def log_device_split(torch, label: str, fn) -> float:
@@ -983,6 +1017,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
     if focus["meta"]["focus"]["best_frame"] != SCAN_BEST or any(res["sharpness scan"].values()):
         raise AssertionError(f"focus scan: {focus['meta']['focus']}, launches {res['sharpness scan']}")
     res["scan_s"] = scan_s
+    res["scan"] = scan
     return res
 
 
@@ -1344,7 +1379,353 @@ def run_xst(torch, dev, data, card: str) -> dict:
         f"fitted R {min(fits):.3f}..{max(fits):.3f} m (true {XST_R} m)")
     if not (max(rels) < WAVEFRONT_REL and all(abs(f - XST_R) / XST_R < RADIUS_REL for f in fits)):
         raise AssertionError(f"wavefront errors {rels}, fitted radii {fits}")
-    return {"launches": launches, "one_pass": one_pass}
+    return {"launches": launches, "one_pass": one_pass, "st_c": st_c, "ref_c": ref_c}
+
+
+# -- files in, reports out ---------------------------------------------------------
+
+_STAMP_LINE = "%Y-%m-%d | %H:%M:%S"
+
+
+def write_baseline_tiff(path, arr: np.ndarray) -> None:
+    """One uint16 frame as a baseline TIFF: little-endian, one uncompressed
+    strip, BlackIsZero. The layout ``native/dipio.cpp`` decodes; written
+    here with ``struct`` so the check needs no Pillow."""
+    import struct
+
+    arr = np.ascontiguousarray(arr, dtype="<u2")
+    h, w = arr.shape
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1), (262, 3, 1),
+            (273, 4, 8 + 2 + 10 * 12 + 4), (277, 3, 1), (278, 4, h), (279, 4, arr.nbytes), (339, 3, 1)]
+    ifd = struct.pack("<H", len(tags))
+    for tag, typ, value in tags:
+        ifd += struct.pack("<HHI", tag, typ, 1) + (struct.pack("<HH", value, 0) if typ == 3
+                                                    else struct.pack("<I", value))
+    Path(path).write_bytes(struct.pack("<2sHI", b"II", 42, 8) + ifd + struct.pack("<I", 0) + arr.tobytes())
+
+
+def _without_stamp(report: str) -> list[str]:
+    """A report's lines, its date-and-time line left out."""
+    def is_stamp(line):
+        try:
+            time.strptime(line, _STAMP_LINE)
+        except ValueError:
+            return False
+        return True
+
+    return [ln for ln in report.splitlines() if not is_stamp(ln)]
+
+
+def _native_gate(on: bool) -> None:
+    if on:
+        os.environ["BARC4DIP_TORCH_NATIVE_IO"] = "1"
+    else:
+        os.environ.pop("BARC4DIP_TORCH_NATIVE_IO", None)
+
+
+def run_files(torch, dev, stack, scan, memory_s: float, have: dict, card: str) -> dict:
+    """Files in, reports out, on the card (the module docstring's phase
+    10): Config D from EDF files, baseline TIFFs through the native codec,
+    one HDF5 run where h5py imports, both console scripts, a trace."""
+    import contextlib
+    import io
+    import tempfile
+    from unittest import mock
+
+    import barc4dip_tpu_torch as port
+    import barc4dip_tpu_torch.io as pio
+    from barc4dip_tpu_torch.io import native
+    from barc4dip_tpu_torch.models import SharpnessScanPipeline, SpeckleStackPipeline
+    from barc4dip_tpu_torch.ops import _nvcc, cuda_fftp
+    from barc4dip_tpu_torch.report import batch_cli, cli
+    from barc4dip_tpu_torch.utils import spiral_motion
+    from barc4dip_tpu_torch.utils.profiling import StageTimer, annotate, device_trace
+
+    T, H, W = stack.shape
+    mp = T * H * W / 1e6
+    res: dict = {}
+    if not native.native_available():
+        raise RuntimeError(f"the native codec did not build: {native.load_error()}")
+    log(f"native codec: built from native/dipio.cpp into {native.BUILD_DIR.relative_to(REPO)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- Config D from disk: 16 uint16 EDF files, one a frame
+        t0 = time.perf_counter()
+        paths = []
+        for t, frame in enumerate(stack):
+            paths.append(str(tmp / f"scan_{t:04d}.edf"))
+            pio.save_edf(frame, paths[-1])
+        write_s = time.perf_counter() - t0
+        read_s = {}
+        for gate in (True, False):
+            _native_gate(gate)
+            t0 = time.perf_counter()
+            frames = [pio.read_edf(p) for p in paths]
+            read_s[gate] = time.perf_counter() - t0
+            if not all(f.dtype == np.float32 and np.array_equal(f, st) for f, st in zip(frames, stack)):
+                raise AssertionError(f"EDF frames read back (native codec {gate}) differ from the stack")
+        del frames
+        log(f"{T} EDF files of {H}x{W} uint16 ({T * H * W * 2 / 2**20:.0f} MiB) written in {write_s:.3f} s; "
+            f"read alone as float32 in {read_s[True]:.3f} s through the native codec (dipio) and "
+            f"{read_s[False]:.3f} s through the Python parser")
+
+        f32 = stack.astype(np.float32)
+        kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
+        want = port.speckle_stack_stats(f32, **kw)  # the twin of a file run: the float32 stack
+        pipe = SpeckleStackPipeline(frame_chunk=FRAME_CHUNK)
+
+        # the counted run (the twin's run warmed its path), every file read timed on the host
+        timer, read_timer = StageTimer(sync=True), StageTimer(sync=False)
+        reads = []
+        real_read = pio.read_edf
+
+        def timed_read(path, *a, **k):
+            reads.append(path)
+            with read_timer.stage("read"):
+                return real_read(path, *a, **k)
+
+        pio.read_edf = timed_read
+        try:
+            cuda_fftp.reset_counts()
+            torch.cuda.synchronize()
+            with timer.stage("run_files"):
+                out = pipe.run_files(paths)
+            launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+            files_s, in_reads = timer.totals["run_files"], read_timer.totals["read"]
+            reads_counted = list(reads)
+            cuda_fftp.reset_counts()
+            maps = [out["full"]["grain"]["autocorr"][t] for t in range(GOLDEN_K)]
+            map_launches = dict(cuda_fftp.LAUNCHES)
+        finally:
+            pio.read_edf = real_read
+        log(f"Config D from EDF files (SpeckleStackPipeline(frame_chunk={FRAME_CHUNK}).run_files, Python "
+            f"parser, counted run): {files_s:.3f} s = {mp / files_s:.2f} MP/s with the reads "
+            f"(the in-memory counted run of this process: {memory_s:.3f} s = {mp / memory_s:.2f} MP/s); "
+            f"stages: read {in_reads:.3f} s in {len(reads_counted)} reads = "
+            f"{in_reads / files_s:.1%}, metrics+tracking {files_s - in_reads:.3f} s; K1 launches "
+            f"{json.dumps(launches)}; {card}")
+        chunks = -(-T // FRAME_CHUNK)
+        if launches != {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}:
+            raise AssertionError(f"run_files launched K1 {launches}")
+        if not set(plain) <= subtile_plain_keys(H, W):
+            raise AssertionError(f"run_files: unexpected plain-path shapes {sorted(plain)}")
+        if reads_counted != paths:
+            raise AssertionError(f"run_files read {len(reads_counted)} files, not each of {T} once in order")
+        worst, d = max_leaf_diff(out, want)
+        map_d = max(float(np.abs(m - want["full"]["grain"]["autocorr"][t]).max()) for t, m in enumerate(maps))
+        err = spiral_error(out)
+        log(f"run_files vs speckle_stack_stats(stack.astype(float32)): max |diff| {d:.3e} over every "
+            f"leaf (worst {worst}); maps of frames 0-{GOLDEN_K - 1} read after the call: {len(reads) - T} "
+            f"more file reads, K1 launches {json.dumps(map_launches)}, max |diff| {map_d:.3e}; tracking "
+            f"{err:.4f} px from the spiral (gate {TRACK_GATE_PX})")
+        if d != 0.0 or map_d != 0.0 or not err <= TRACK_GATE_PX:
+            raise AssertionError(f"run_files differs from the in-memory run: {worst} {d:.3e}, maps {map_d:.3e}, "
+                                 f"tracking {err:.4f} px")
+        if map_launches != {"cols": GOLDEN_K, "rows": GOLDEN_K, "rows_ncc": 0} or len(reads) != T + GOLDEN_K:
+            raise AssertionError(f"map reads: K1 {map_launches}, {len(reads) - T} file reads")
+        res.update({"run_files": launches, "run_files map reads": map_launches, "files_s": files_s})
+
+        _native_gate(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        native_out = pipe.run_files(paths)
+        torch.cuda.synchronize()
+        native_s = time.perf_counter() - t0
+        worst, d = max_leaf_diff(native_out, want)
+        log(f"the same run with BARC4DIP_TORCH_NATIVE_IO=1: {native_s:.3f} s = {mp / native_s:.2f} MP/s "
+            f"with the reads; max |diff| {d:.3e}; {card}")
+        if d != 0.0:
+            raise AssertionError(f"run_files through the native codec differs: {worst} {d:.3e}")
+        del native_out
+
+        # -- baseline TIFFs through the native codec; the focus scan from files
+        tiffs = []
+        for t in range(4):
+            tiffs.append(str(tmp / f"frame_{t}.tif"))
+            write_baseline_tiff(tiffs[-1], stack[t])
+        with mock.patch.dict(sys.modules, {"PIL": None}):  # a way round the codec would raise ImportError
+            got = pio.read_tiff(tiffs)
+        if got.dtype != np.uint16 or not np.array_equal(got, stack[:4]):
+            raise AssertionError("baseline TIFFs read through the native codec differ from the frames")
+        scan_paths = []
+        for t, frame in enumerate(scan):
+            scan_paths.append(str(tmp / f"focus_{t}.tif"))
+            write_baseline_tiff(scan_paths[-1], frame)
+        spipe = SharpnessScanPipeline()
+        focus_mem = spipe(scan.astype(np.float32))
+        t0 = time.perf_counter()
+        focus = spipe.run_files(scan_paths)
+        scan_s = time.perf_counter() - t0
+        worst, d = max_leaf_diff(focus, focus_mem)
+        log(f"baseline TIFF: frames 0-3 through read_tiff with the codec on (Pillow hidden) equal the "
+            f"stack; SharpnessScanPipeline().run_files on {len(scan_paths)} TIFFs: {scan_s:.3f} s, "
+            f"best_frame {focus['meta']['focus']['best_frame']}, max |diff| to the in-memory float32 scan "
+            f"{d:.3e}; {card}")
+        if focus["meta"]["focus"] != focus_mem["meta"]["focus"] or d != 0.0 \
+                or focus["meta"]["focus"]["best_frame"] != SCAN_BEST:
+            raise AssertionError(f"focus scan from TIFFs: {focus['meta']['focus']} vs {focus_mem['meta']['focus']}, "
+                                 f"{worst} {d:.3e}")
+        _native_gate(False)
+
+        # -- HDF5: frames 0-7 as stored (uint16)
+        sub = stack[:OPT_T]
+        if have["h5py"]:
+            t0 = time.perf_counter()
+            pio.save_h5(sub, tmp / "run.h5")
+            save_s = time.perf_counter() - t0
+            mem = port.speckle_stack_stats(sub, **kw)
+            cuda_fftp.reset_counts()
+            mem = port.speckle_stack_stats(sub, **kw)
+            mem_launches = dict(cuda_fftp.LAUNCHES)
+            cuda_fftp.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h5 = pipe.run_hdf5(str(tmp / "run.h5"))
+            torch.cuda.synchronize()
+            h5_s = time.perf_counter() - t0
+            res["run_hdf5"] = dict(cuda_fftp.LAUNCHES)
+            worst, d = max_leaf_diff(h5, mem)
+            map_d = float(np.abs(h5["full"]["grain"]["autocorr"][1] - mem["full"]["grain"]["autocorr"][1]).max())
+            log(f"HDF5: save_h5 of {sub.shape} {sub.dtype} in {save_s:.3f} s (gzip-4); run_hdf5 "
+                f"{h5_s:.3f} s = {OPT_T * H * W / 1e6 / h5_s:.2f} MP/s with the reads; K1 launches "
+                f"{json.dumps(res['run_hdf5'])} (the in-memory uint16 run: {json.dumps(mem_launches)}); "
+                f"max |diff| {d:.3e}, a map read after the call {map_d:.3e}; {card}")
+            if res["run_hdf5"] != mem_launches or d != 0.0 or map_d != 0.0:
+                raise AssertionError(f"run_hdf5 vs the in-memory uint16 run: launches {res['run_hdf5']} vs "
+                                     f"{mem_launches}, {worst} {d:.3e}, map {map_d:.3e}")
+            del h5, mem
+        else:
+            log("HDF5: h5py does not import on this machine, so run_hdf5 is not driven here; "
+                "tests/test_torch_run_files.py holds it on the CPU")
+
+        # -- barc4dip-cuda-speckles, in process
+        def speckles_cli():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-s", paths[0], "--all"])
+            return rc, buf.getvalue()
+
+        speckles_cli()
+        cuda_fftp.reset_counts()
+        t0 = time.perf_counter()
+        rc, text = speckles_cli()
+        cli_s = time.perf_counter() - t0
+        res["barc4dip-cuda-speckles"] = dict(cuda_fftp.LAUNCHES)
+        direct = port.logbook_report(port.speckle_stats(
+            pio.read_image(paths[0]), metrics="all", tiles=True, verbose=False))
+        log(f"barc4dip-cuda-speckles -s frame0.edf --all, in process: {cli_s:.3f} s (counted run), "
+            f"{len(text.splitlines())} lines, K1 launches {json.dumps(res['barc4dip-cuda-speckles'])}; {card}")
+        if rc != 0 or _without_stamp(text) != _without_stamp(direct) or len(text.splitlines()) < 10 \
+                or res["barc4dip-cuda-speckles"] != {"cols": 1, "rows": 1, "rows_ncc": 0}:
+            raise AssertionError(f"speckles CLI: rc {rc}, K1 {res['barc4dip-cuda-speckles']}, "
+                                 f"report equal {_without_stamp(text) == _without_stamp(direct)}")
+
+        # -- barc4dip-cuda-batch: in process, then as a subprocess with no --device
+        argv = [*paths[:OPT_T], "--frame-chunk", str(FRAME_CHUNK)]
+        j, z, r = tmp / "summary.json", tmp / "full.npz", tmp / "run.md"
+        missing = subprocess.Popen(
+            [sys.executable, "-m", "barc4dip_tpu_torch.report.batch_cli", str(tmp / "no_such_file.edf")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            cuda_fftp.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = batch_cli.main([*argv, "--out", str(j), "--npz", str(z), "--report", str(r)])
+            batch_s = time.perf_counter() - t0
+            res["barc4dip-cuda-batch"] = dict(cuda_fftp.LAUNCHES)
+            summary = json.loads(j.read_text())
+            dys, dxs = spiral_motion(T)
+            want_r = float(np.hypot(dys[:OPT_T], dxs[:OPT_T]).max())
+            direct = SpeckleStackPipeline(frame_chunk=FRAME_CHUNK).run_files(paths[:OPT_T])
+            flat = batch_cli._flatten_npz({k: v for k, v in direct.items() if k != "meta"})
+            with np.load(z) as npz:
+                same = sorted(npz.files) == sorted(flat) and all(
+                    np.array_equal(npz[k], flat[k], equal_nan=True) for k in flat)
+                n_leaves = len(npz.files)
+            log(f"barc4dip-cuda-batch on {OPT_T} EDF files (--frame-chunk {FRAME_CHUNK} --out --npz --report), "
+                f"in process: {batch_s:.3f} s; tracking.max_r_px {summary['tracking']['max_r_px']:.4f} "
+                f"(the spiral's {want_r:.4f}); {n_leaves} .npz leaves equal to run_files': {same}; report "
+                f"of {len(r.read_text().splitlines())} lines; K1 launches "
+                f"{json.dumps(res['barc4dip-cuda-batch'])}; {card}")
+            n = -(-OPT_T // FRAME_CHUNK)  # the summary, the .npz and the report read no lazy map
+            if rc != 0 or abs(summary["tracking"]["max_r_px"] - want_r) > TRACK_GATE_PX or not same \
+                    or not r.read_text().strip() or summary["n_frames"] != OPT_T \
+                    or res["barc4dip-cuda-batch"] != {"cols": 3 * n, "rows": n, "rows_ncc": 2 * n}:
+                raise AssertionError(f"batch CLI: rc {rc}, summary {summary.get('tracking')}, npz equal {same}, "
+                                     f"K1 {res['barc4dip-cuda-batch']}")
+
+            built = sorted(p.name for p in _nvcc.BUILD_DIR.iterdir())
+            j2 = tmp / "summary_subprocess.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "barc4dip_tpu_torch.report.batch_cli", *argv, "--out", str(j2)],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            sub_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"batch CLI as a subprocess: exit {proc.returncode}: {proc.stderr[-2000:]}")
+            rebuilt = sorted(p.name for p in _nvcc.BUILD_DIR.iterdir()) != built
+            log(f"python -m barc4dip_tpu_torch.report.batch_cli (a subprocess, no --device): exit 0 in "
+                f"{sub_s:.3f} s wall, import + CUDA context + kernel load from build/kernels + run "
+                f"(the run alone, in process: {batch_s:.3f} s); same JSON: "
+                f"{json.loads(j2.read_text()) == summary}; kernels rebuilt: {rebuilt}; {card}")
+            if json.loads(j2.read_text()) != summary or rebuilt:
+                raise AssertionError("the subprocess gave another summary or rebuilt a kernel")
+            _out, err_text = missing.communicate(timeout=300)
+        finally:
+            if missing.poll() is None:
+                missing.kill()
+                missing.wait()
+        log(f"a path that does not exist: exit code {missing.returncode}; stderr: {err_text.strip()}")
+        if missing.returncode != 2 or "not found" not in err_text:
+            raise AssertionError(f"missing input: exit {missing.returncode}, stderr {err_text!r}")
+
+        # -- one chunk under device_trace
+        with device_trace(str(tmp / "trace")) as trace_path, annotate("one-chunk-from-files"):
+            SpeckleStackPipeline(frame_chunk=FRAME_CHUNK).run_files(paths[:FRAME_CHUNK])
+        trace = Path(trace_path).read_text()
+        named = [k for k in ("corr_cols_inverse", "corr_rows_c2r", "one-chunk-from-files") if k in trace]
+        log(f"device_trace of one chunk from files: {Path(trace_path).name}, {len(trace) / 2**20:.1f} MiB; "
+            f"K1 kernels and the annotated span named in it: {named}")
+        if len(named) != 3:
+            raise AssertionError(f"the trace names only {named}")
+    return res
+
+
+def run_files_xst(torch, dev, xst: dict, card: str) -> dict:
+    """The corrected XST frames written as float32 EDF, then
+    ``WavefrontScanPipeline.run_files`` against the in-memory call."""
+    import tempfile
+
+    import barc4dip_tpu_torch.io as pio
+    from barc4dip_tpu_torch.models import WavefrontScanPipeline
+    from barc4dip_tpu_torch.ops import cuda_densetrack
+
+    frames, ref = xst["st_c"].cpu().numpy(), xst["ref_c"].cpu().numpy()
+    pipe = WavefrontScanPipeline(pixel_size=XST_PIXEL, distance=XST_DIST, wavelength=1e-10,
+                                 tile_size=XST_TILE, step=XST_STEP, search_radius=XST_RADIUS)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for t, frame in enumerate(frames):
+            paths.append(str(Path(tmp) / f"xst_{t:04d}.edf"))
+            pio.save_edf(frame, paths[-1])
+        pio.save_edf(ref, Path(tmp) / "reference.edf")
+        cuda_densetrack.reset_counts()
+        want = pipe(frames, ref)
+        mem_launches = dict(cuda_densetrack.LAUNCHES)
+        cuda_densetrack.reset_counts()
+        t0 = time.perf_counter()
+        out = pipe.run_files(paths, reference_path=str(Path(tmp) / "reference.edf"))
+        files_s = time.perf_counter() - t0
+        launches, plain = dict(cuda_densetrack.LAUNCHES), dict(cuda_densetrack.PLAIN_BY_SHAPE)
+    diffs = {k: float(np.abs(out[k] - want[k]).max()) for k in ("dy", "dx", "peak", "wavefront", "phase")}
+    log(f"XST from disk: WavefrontScanPipeline.run_files on {len(paths)} float32 EDF files + reference: "
+        f"{files_s:.3f} s with the reads = {len(paths) / files_s:.2f} frames/s; K3 launches "
+        f"{json.dumps(launches)} (the in-memory call: {json.dumps(mem_launches)}); max |diff| "
+        f"{json.dumps(diffs)}; {card}")
+    if launches != mem_launches or not launches["ncc_sums"] > 0 or plain or any(diffs.values()):
+        raise AssertionError(f"XST from disk: launches {launches} vs {mem_launches}, plain {plain}, diffs {diffs}")
+    return {"launches": launches}
 
 
 def contract_line(name: str) -> dict:
@@ -1370,6 +1751,15 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda}, driver_version {smi_version}; "
             f"device 0: {name}")
         log(smi)
+        have = {}
+        for module in ("h5py", "PIL"):
+            try:
+                __import__(module)
+                have[module] = True
+            except ImportError:
+                have[module] = False
+        log(f"optional packages on this machine: h5py {'imports' if have['h5py'] else 'is absent'}, "
+            f"Pillow (PIL) {'imports' if have['PIL'] else 'is absent'}")
     card = f"card: {smi}"
     dev = torch.device("cuda", 0)
 
@@ -1419,10 +1809,14 @@ def main() -> int:
 
     with Phase("sharpness"):
         sharp = run_sharpness(torch, dev, stack, card)
+
+    with Phase("files"):
+        files = run_files(torch, dev, stack, sharp["scan"], res["warm_s"], have, card)
     by_path = {"slice": res["launches"], "slice map reads": res["map_launches"],
                "speckle_stats": single["launches"], "speckle_stats map read": single["map_launches"],
                "resident": resident["launches"], **options, "full_step_fn": full_step["launches"],
-               **{k: v for k, v in sharp.items() if isinstance(v, dict)}}
+               **{k: v for k, v in sharp.items() if isinstance(v, dict)},
+               **{k: v for k, v in files.items() if isinstance(v, dict)}}
     log(f"K1 launches by path (counted runs): {json.dumps(by_path)}")
 
     with Phase("data-xst"):
@@ -1436,6 +1830,9 @@ def main() -> int:
     with Phase("xst"):
         xst = run_xst(torch, dev, data, card)
 
+    with Phase("files-xst"):
+        files_xst = run_files_xst(torch, dev, xst, card)
+
     if "--profile" in sys.argv[1:]:
         with Phase("profile"):
             profile_slice(torch, dev, stack)
@@ -1447,9 +1844,11 @@ def main() -> int:
             row["launches"] = xst["launches"]["median3x3"]
         elif row["name"].startswith("ncc_sums"):
             row["launches"] = xst["launches"]["ncc_sums"]
+            row["launches_files"] = files_xst["launches"]["ncc_sums"]
         else:
             key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
             row["launches"] = res["launches"][key]
+            row["launches_files"] = files["run_files"][key]
             row["launches_sharpness"] = sharp["sharpness_stats"][key]
             if row["name"].endswith("standardized"):  # a shape of the sharpness paths only
                 nf = int(row["name"].split("=")[1].split()[0])

@@ -16,12 +16,17 @@ from barc4dip_tpu.preprocessing.normalize import flat_field_correction as jax_ff
 from barc4dip_tpu.utils import dtype as jax_dtype
 from barc4dip_tpu.utils import range as jax_range
 from barc4dip_tpu_torch.ops import cuda_median
-from barc4dip_tpu_torch.preprocessing import flat_field_correction
+from barc4dip_tpu_torch.preprocessing import flat_field_correction as torch_ffc
 from barc4dip_tpu_torch.utils import dtype as t_dtype
 from barc4dip_tpu_torch.utils import range as t_range
 
 torch.set_num_threads(2)
 SIDE = 64
+CPU = dict(device="cpu")  # the port runs on the CPU only where it is asked to
+
+
+def flat_field_correction(images, **kw):
+    return torch_ffc(images, **{**CPU, **kw})
 
 
 def _calibration(seed=0, dead_frac=0.01):
@@ -116,18 +121,18 @@ def test_ranges_match_jax(which, ndim):
     frames, nan_frames = _range_inputs()
     x = frames if which == "plain" else nan_frames
     x = x if ndim == 3 else x[0]
-    assert t_range.filtered_minmax_range(x) == jax_range.filtered_minmax_range(x)
-    assert (t_range.filtered_minmax_range_streaming(x)
+    assert t_range.filtered_minmax_range(x, **CPU) == jax_range.filtered_minmax_range(x)
+    assert (t_range.filtered_minmax_range_streaming(x, **CPU)
             == jax_range.filtered_minmax_range_streaming(x))
-    assert t_range.filtered_minmax_range(x, size=5) == jax_range.filtered_minmax_range(x, size=5)
-    assert t_range.percentile_minmax_range(x) == jax_range.percentile_minmax_range(x)
-    assert (t_range.percentile_minmax_range(x, 2.0, 98.0)
+    assert t_range.filtered_minmax_range(x, size=5, **CPU) == jax_range.filtered_minmax_range(x, size=5)
+    assert t_range.percentile_minmax_range(x, **CPU) == jax_range.percentile_minmax_range(x)
+    assert (t_range.percentile_minmax_range(x, 2.0, 98.0, **CPU)
             == jax_range.percentile_minmax_range(x, 2.0, 98.0))
 
 
 def test_percentile_range_of_counts_matches_jax():
     raw, *_ = _calibration(seed=4)
-    assert t_range.percentile_minmax_range(raw) == jax_range.percentile_minmax_range(raw)
+    assert t_range.percentile_minmax_range(raw, **CPU) == jax_range.percentile_minmax_range(raw)
 
 
 @pytest.mark.parametrize(
@@ -140,7 +145,7 @@ def test_range_errors_match_jax(fn, bad):
     with pytest.raises(ValueError) as want:
         getattr(jax_range, fn)(bad)
     with pytest.raises(ValueError) as got:
-        getattr(t_range, fn)(bad)
+        getattr(t_range, fn)(bad, **CPU)
     assert str(got.value).split(":")[0] == str(want.value).split(":")[0]
 
 
@@ -150,9 +155,9 @@ def test_to_uint16_matches_jax():
     normalised = flat_field_correction(raw, flats=flats, darks=darks, scale="none")
     assert float(np.mean(normalised)) < 10.0 < float(np.mean(counts))
     for x in (counts, normalised, normalised[0], raw):
-        got = t_dtype.to_uint16(x)
+        got = t_dtype.to_uint16(x, **CPU)
         assert got.dtype == np.uint16
         np.testing.assert_array_equal(got, jax_dtype.to_uint16(x))
     with pytest.raises(ValueError, match="2D or 3D"):
-        t_dtype.to_uint16(np.zeros(4, np.float32))
+        t_dtype.to_uint16(np.zeros(4, np.float32), **CPU)
     assert t_dtype.round_uint16_bounds(1234.5, 64999.0) == jax_dtype.round_uint16_bounds(1234.5, 64999.0)

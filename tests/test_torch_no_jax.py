@@ -2,8 +2,10 @@
 """The port stands without jax: importing it and driving it on the CPU (a
 tiny stack at the defaults, one lazy map read, a tensor stack,
 ``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
-a focus scan and a report) pulls in neither jax nor the JAX package, and
-launches no kernel. ``chip_smoke.py`` needs a
+a focus scan, a report, an EDF written and read back, both console scripts
+and the pipelines' ``run_files``) pulls in neither jax nor the JAX package,
+and launches no kernel; its ``io`` imports with ``h5py`` and Pillow hidden.
+``chip_smoke.py`` needs a
 card, reports the one card it used, and reads lazy maps only by frame."""
 import importlib.util
 import subprocess
@@ -14,9 +16,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = """
 import sys
+sys.modules["h5py"] = sys.modules["PIL"] = None  # hidden while the port is imported
 import numpy as np
 import barc4dip_tpu_torch as port
-from barc4dip_tpu_torch import maths, models, preprocessing, report, signal
+import barc4dip_tpu_torch.io
+from barc4dip_tpu_torch import io, maths, models, preprocessing, report, signal
+from barc4dip_tpu_torch.io import edf, h5, native, rw, tiff, uti_EdfFile
+from barc4dip_tpu_torch.report import batch_cli, cli
+from barc4dip_tpu_torch.utils import profiling
+del sys.modules["h5py"], sys.modules["PIL"]
 from barc4dip_tpu_torch.metrics import sharpness
 from barc4dip_tpu_torch.ops import _nvcc, cuda_densetrack, cuda_fftp, cuda_median, densetrack, rank
 from barc4dip_tpu_torch.ops import eig, stencils
@@ -38,12 +46,12 @@ fs = step(f, f, torch.full((128, 128), 2.0), torch.zeros(128, 128), f[0, :17, :1
 assert torch.isfinite(fs["dy_abs"]).all()
 flat = np.full((128, 128), 2.0, np.float32)
 flat[5, 7] = 0.0
-ff = preprocessing.flat_field_correction(stack, flats=flat, bad_pixel_removal=True)
-wf = models.WavefrontScanPipeline(pixel_size=1e-6, distance=0.5, tile_size=17, search_radius=4)(
-    ff, ff[0])
+ff = preprocessing.flat_field_correction(stack, flats=flat, bad_pixel_removal=True, device="cpu")
+wf = models.WavefrontScanPipeline(pixel_size=1e-6, distance=0.5, tile_size=17, search_radius=4,
+                                  device="cpu")(ff, ff[0])
 assert np.all(np.isfinite(wf["wavefront"]))
 wf = models.WavefrontScanPipeline(pixel_size=1e-6, distance=0.5, tile_size=17, search_radius=4,
-                                  method="pallas")(ff, ff[0])
+                                  method="pallas", device="cpu")(ff, ff[0])
 assert np.all(np.isfinite(wf["wavefront"]))
 sharp = port.sharpness_stats(stack[0], tiles=False, verbose=False, device="cpu")
 assert np.isfinite(sharp["full"]["autocorrelation"]["seq"])
@@ -52,6 +60,21 @@ assert sharpness.eigenvalues(stack[0], device="cpu")["e1"] > 0
 scan = models.SharpnessScanPipeline()(torch.from_numpy(stack))
 assert scan["meta"]["focus"]["best_frame"] in (0, 1)
 assert report.logbook_report(port.sharpness_stack_stats(stack, verbose=False, device="cpu")).strip()
+import contextlib, os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    paths = []
+    for t, frame in enumerate(stack):
+        paths.append(os.path.join(tmp, f"f{t}.edf"))
+        io.save_edf(frame, paths[-1])
+    assert np.array_equal(port.read_image(paths), stack)
+    sink = open(os.path.join(tmp, "out.txt"), "w")
+    with contextlib.redirect_stdout(sink), profiling.StageTimer(sync=False).stage("cli"):
+        assert cli.main(["-s", paths[0], "--device", "cpu"]) == 0
+        assert batch_cli.main([*paths, "--device", "cpu"]) == 0
+    sink.close()
+    assert "# Speckle summary" in open(os.path.join(tmp, "out.txt")).read()
+    files = models.SpeckleStackPipeline(device="cpu").run_files(paths)
+    assert np.array_equal(files["temporal"]["abs"]["dy"], out["temporal"]["abs"]["dy"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
 assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES
@@ -121,3 +144,27 @@ def test_chip_smoke_reads_lazy_maps_by_frame():
     assert golden["full.grain.autocorr.sample4096"].shape == (4096,)
     np.testing.assert_allclose(golden["full.grain.autocorr.summary"], [0.5, np.sqrt(0.5), 1.0])
     assert "full.grain.autocorr" not in golden and "full.grain.xlag" in golden
+
+
+def test_chip_smoke_writes_baseline_tiffs_both_codecs_read(tmp_path):
+    """``write_baseline_tiff`` (``struct`` only) gives a file that Pillow and,
+    where g++ is present, the native codec decode to the frame; a report's
+    date-and-time line is the one line ``_without_stamp`` drops."""
+    import numpy as np
+    from PIL import Image
+
+    from barc4dip_tpu_torch.io import native
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    arr = np.random.default_rng(0).integers(0, 65535, size=(37, 50)).astype(np.uint16)
+    smoke.write_baseline_tiff(tmp_path / "b.tif", arr)
+    with Image.open(tmp_path / "b.tif") as img:
+        np.testing.assert_array_equal(np.array(img), arr)
+    if native.native_available():
+        got = native.read_tiff_native(tmp_path / "b.tif")
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, arr)
+    report = "# Speckle summary\n2026-01-02 | 03:04:05\n\n## Metadata\n- 2026-01-02 | 03:04:05 px\n"
+    assert smoke._without_stamp(report) == ["# Speckle summary", "", "## Metadata", "- 2026-01-02 | 03:04:05 px"]

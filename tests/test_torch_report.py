@@ -46,10 +46,10 @@ def _stats(kind):
     track = dict(tile_size=17, step=16, search_radius=3)
     if kind == "wavefront_scan":
         return t_models.WavefrontScanPipeline(
-            pixel_size=1e-6, distance=0.5, wavelength=1e-10, **track)(frames, frames[0])
+            pixel_size=1e-6, distance=0.5, wavelength=1e-10, device="cpu", **track)(frames, frames[0])
     if kind == "displacement_stack":
-        return t_xst.track_displacement_stack(frames, frames[0], **track)
-    field = t_xst.track_displacement_field(frames[1], frames[0], **track)
+        return t_xst.track_displacement_stack(frames, frames[0], device="cpu", **track)
+    field = t_xst.track_displacement_field(frames[1], frames[0], device="cpu", **track)
     if kind == "displacement_field":
         return field
     if kind == "wavefront":

@@ -181,13 +181,23 @@ def test_stack_validation_raises_as_jax(k):
         assert str(got.value) == str(want.value)
 
 
-def test_mesh_is_not_ported():
+def test_mesh_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tm.sharpness_stack_stats(_scan(T=2), mesh=object(), verbose=False, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         t_common.run_stack_program(_scan(T=2), lambda x: {}, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        t_models.SharpnessScanPipeline().run_files(["a.tif"])
+    # the file-driven focus scan runs: frames from disk equal frames from memory
+    from barc4dip_tpu_torch.io import save_edf
+
+    stack = _scan(T=3).astype(np.float32)
+    paths = []
+    for t, frame in enumerate(stack):
+        paths.append(str(tmp_path / f"scan_{t}.edf"))
+        save_edf(frame, paths[-1])
+    pipe = t_models.SharpnessScanPipeline(frame_chunk=2, device="cpu")
+    from_files, in_memory = pipe.run_files(paths), pipe(stack)
+    assert from_files["meta"]["focus"] == in_memory["meta"]["focus"]
+    assert_stats_close(from_files, in_memory, rtol=0)
 
 
 def test_verbose_prints_progress_and_logs(caplog, capsys):
@@ -265,7 +275,7 @@ def test_jax_checkpoint_directory_is_not_resumed(tmp_path, monkeypatch):
 
 def test_scan_pipeline_picks_the_focus_frame_as_jax():
     stack = _scan()
-    got = t_models.SharpnessScanPipeline()(stack)
+    got = t_models.SharpnessScanPipeline(device="cpu")(stack)
     want = j_pipe.SharpnessScanPipeline()(stack)
     assert got["meta"]["focus"]["best_frame"] == 2 == want["meta"]["focus"]["best_frame"]
     assert got["meta"]["focus"]["metric"] == "gradient.tenengrad"
@@ -276,7 +286,7 @@ def test_scan_pipeline_picks_the_focus_frame_as_jax():
     # a tensor stack and another focus operator
     pipe = t_models.SharpnessScanPipeline(
         metrics="laplacian,spectral", focus_metric=("laplacian", "laplacian_variance"),
-        frame_chunk=2,
+        frame_chunk=2, device="cpu",
     )
     assert pipe(torch.from_numpy(stack))["meta"]["focus"]["best_frame"] == 2
     assert pipe(stack.tolist())["meta"]["focus"]["best_frame"] == 2
@@ -298,7 +308,8 @@ def test_scan_pipeline_rejects_a_focus_group_outside_the_metrics(monkeypatch):
 
 def test_scan_pipeline_all_nan_series():
     stack = np.full((3, 64, 64), np.nan)
-    got = t_models.SharpnessScanPipeline(metrics="spectral", focus_metric=("spectral", "spectral_entropy"))(stack)
+    got = t_models.SharpnessScanPipeline(metrics="spectral", focus_metric=("spectral", "spectral_entropy"),
+                                         device="cpu")(stack)
     want = j_pipe.SharpnessScanPipeline(metrics="spectral", focus_metric=("spectral", "spectral_entropy"))(stack)
     assert got["meta"]["focus"]["best_frame"] is None is want["meta"]["focus"]["best_frame"]
     assert np.isnan(got["meta"]["focus"]["series_min"]) and np.isnan(got["meta"]["focus"]["series_max"])

@@ -29,6 +29,11 @@ PIXEL, DIST, R = 1e-6, 0.5, 20.0
 SHIFTS = [(0.0, 0.0), (0.6, -0.4), (-0.9, 0.3), (0.2, 1.1), (-0.5, -0.8)]
 PIPE = dict(pixel_size=PIXEL, distance=DIST, wavelength=1e-10, tile_size=25, step=16,
             search_radius=5)
+CPU = dict(device="cpu")  # the port runs on the CPU only where it is asked to
+
+
+def _torch_ffc(images, **kw):
+    return tprep.flat_field_correction(images, **CPU, **kw)
 
 
 def _warp(img, dy, dx):
@@ -88,7 +93,7 @@ def _compare_wavefronts(got, want):
 
 
 def test_flatfield_repairs_dead_pixels_like_jax(raw):
-    t_stack, t_ref = _corrected(tprep.flat_field_correction, raw)
+    t_stack, t_ref = _corrected(_torch_ffc, raw)
     j_stack, j_ref = _corrected(jnorm.flat_field_correction, raw)
     np.testing.assert_array_equal(t_stack, j_stack)
     np.testing.assert_array_equal(t_ref, j_ref)
@@ -96,9 +101,9 @@ def test_flatfield_repairs_dead_pixels_like_jax(raw):
 
 
 def test_wavefront_scan_matches_jax(raw):
-    t_stack, t_ref = _corrected(tprep.flat_field_correction, raw)
+    t_stack, t_ref = _corrected(_torch_ffc, raw)
     j_stack, j_ref = _corrected(jnorm.flat_field_correction, raw)
-    got = tmodels.WavefrontScanPipeline(**PIPE)(t_stack, t_ref)
+    got = tmodels.WavefrontScanPipeline(**PIPE, **CPU)(t_stack, t_ref)
     want = jmodels.WavefrontScanPipeline(**PIPE)(j_stack, j_ref)
     assert got["meta"]["method"] == "fft"
     assert got["dy"].shape == (T, *got["meta"]["grid_shape"])
@@ -114,20 +119,20 @@ def test_wavefront_scan_matches_jax(raw):
 
 
 def test_single_frame_matches_jax(raw):
-    t_stack, t_ref = _corrected(tprep.flat_field_correction, raw)
-    got = tmodels.WavefrontScanPipeline(**PIPE)(t_stack[2], t_ref)
+    t_stack, t_ref = _corrected(_torch_ffc, raw)
+    got = tmodels.WavefrontScanPipeline(**PIPE, **CPU)(t_stack[2], t_ref)
     want = jmodels.WavefrontScanPipeline(**PIPE)(t_stack[2], t_ref)
     _compare_fields(got, want)
     _compare_wavefronts(got, want)
     with pytest.raises(ValueError, match="reference"):
-        tmodels.WavefrontScanPipeline(**PIPE)(t_stack[2])
+        tmodels.WavefrontScanPipeline(**PIPE, **CPU)(t_stack[2])
 
 
 def test_frame_batched_pallas_path_matches_jax(raw):
     """method="pallas", frame_batch=2 over T=5 frames: the padded tail."""
-    t_stack, t_ref = _corrected(tprep.flat_field_correction, raw)
+    t_stack, t_ref = _corrected(_torch_ffc, raw)
     kw = dict(tile_size=25, step=16, search_radius=5, method="pallas", frame_batch=2)
-    got = tsignal.track_displacement_stack(t_stack, t_ref, **kw)
+    got = tsignal.track_displacement_stack(t_stack, t_ref, **CPU, **kw)
     want = jsignal.track_displacement_stack(t_stack, t_ref, **kw)
     assert got["meta"]["frame_batch"] == 2 and got["dy"].shape[0] == T
     _compare_fields(got, want)
@@ -135,15 +140,15 @@ def test_frame_batched_pallas_path_matches_jax(raw):
     _compare_wavefronts(tsignal.wavefront_from_displacements(got, **wf),
                         jsignal.wavefront_from_displacements(want, **wf))
     # frame by frame, the batched FFTs round differently: float32 round-off
-    per_frame = tsignal.track_displacement_stack(t_stack, t_ref, **{**kw, "frame_batch": 1})
+    per_frame = tsignal.track_displacement_stack(t_stack, t_ref, **{**kw, **CPU, "frame_batch": 1})
     for k in ("dy", "dx", "peak"):
         np.testing.assert_allclose(per_frame[k], got[k], rtol=0, atol=1e-5)
 
 
 def test_tensor_inputs_give_the_same_field(raw):
-    t_stack, t_ref = _corrected(tprep.flat_field_correction, raw)
+    t_stack, t_ref = _corrected(_torch_ffc, raw)
     kw = dict(tile_size=25, step=16, search_radius=5)
-    a = tsignal.track_displacement_field(t_stack[1], t_ref, **kw)
+    a = tsignal.track_displacement_field(t_stack[1], t_ref, **CPU, **kw)
     b = tsignal.track_displacement_field(torch.from_numpy(t_stack[1]), torch.from_numpy(t_ref), **kw)
     for k in ("dy", "dx", "peak"):
         np.testing.assert_array_equal(a[k], b[k])
@@ -176,26 +181,44 @@ def test_integrate_gradients_validation_matches_jax(args, kw):
     assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
 
 
-def test_validation_and_unported_entry_points():
+def test_validation_and_unported_entry_points(tmp_path):
     a = np.zeros((64, 64))
     with pytest.raises(ValueError, match="equal-shape"):
-        tsignal.track_displacement_field(a, np.zeros((64, 32)))
+        tsignal.track_displacement_field(a, np.zeros((64, 32)), **CPU)
     with pytest.raises(ValueError, match="too small"):
-        tsignal.track_displacement_field(a, a, tile_size=48, search_radius=16)
+        tsignal.track_displacement_field(a, a, tile_size=48, search_radius=16, **CPU)
     with pytest.raises(ValueError, match="3D"):
-        tsignal.track_displacement_stack(a)
+        tsignal.track_displacement_stack(a, **CPU)
     with pytest.raises(ValueError, match="ref shape"):
-        tsignal.track_displacement_stack(np.zeros((2, 64, 64)), ref=a[:32])
+        tsignal.track_displacement_stack(np.zeros((2, 64, 64)), ref=a[:32], **CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsignal.track_displacement_stack(np.zeros((2, 64, 64)), mesh=object())
+        tsignal.track_displacement_stack(np.zeros((2, 64, 64)), mesh=object(), **CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, mesh=object())(
+        tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, mesh=object(), **CPU)(
             np.zeros((2, 64, 64)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0).run_files(["a.tif"])
-    for name in ("run_files", "run_edf_files", "run_hdf5"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            getattr(tmodels.SpeckleStackPipeline(), name)("a.h5")
+    # the file-driven entry points run: frames from disk equal frames from memory
+    from barc4dip_tpu_torch.io import save_edf, save_h5
+
+    stack = speckle_stack(3, (160, 160), seed=np.random.default_rng(8), dtype=np.float32,
+                          mean_counts=3000.0)
+    paths = []
+    for t, frame in enumerate(stack):
+        paths.append(str(tmp_path / f"f{t}.edf"))
+        save_edf(frame, paths[-1])
+    wf = tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, tile_size=17,
+                                       search_radius=4, **CPU)
+    from_files, in_memory = wf.run_files(paths), wf(stack)
+    for k in ("dy", "dx", "peak", "wavefront"):
+        np.testing.assert_array_equal(from_files[k], in_memory[k])
+    save_h5(stack, tmp_path / "run.h5")
+    pipe = tmodels.SpeckleStackPipeline(metrics="amplitude", tiles=False, frame_chunk=2, **CPU)
+    in_memory = pipe(stack)
+    for name, arg in (("run_files", paths), ("run_edf_files", paths),
+                      ("run_hdf5", str(tmp_path / "run.h5"))):
+        out = getattr(pipe, name)(arg)
+        np.testing.assert_array_equal(out["temporal"]["abs"]["dx"], in_memory["temporal"]["abs"]["dx"])
+        np.testing.assert_array_equal(out["full"]["amplitude"]["visibility"],
+                                      in_memory["full"]["amplitude"]["visibility"])
     with pytest.raises(ValueError, match="positive"):
         tmodels.WavefrontScanPipeline(pixel_size=0.0, distance=1.0)
     field = {"dy": np.zeros((4, 4)), "dx": np.zeros((4, 4)), "meta": {"step": 16}}
@@ -210,7 +233,7 @@ def test_speckle_stack_pipeline_flatfields_then_matches_jax():
     flats = rng.normal(1000.0, 10.0, size=(2, 192, 192)).astype(np.float32)
     darks = rng.normal(50.0, 1.0, size=(192, 192)).astype(np.float32)
     kw = dict(metrics="amplitude,stats", tiles=False, frame_chunk=2)
-    got = tmodels.SpeckleStackPipeline(**kw)(stack, flats=flats, darks=darks)
+    got = tmodels.SpeckleStackPipeline(**kw, **CPU)(stack, flats=flats, darks=darks)
     want = jmodels.SpeckleStackPipeline(**kw)(stack, flats=flats, darks=darks)
     for g in ("amplitude", "stats"):
         for f, v in want["full"][g].items():

@@ -22,13 +22,20 @@ runs kernel K1a, with ``report.logbook_report``; and the way in and out:
 writers, the native C++ codec of ``native/dipio.cpp``), the pipelines'
 ``run_files`` / ``run_edf_files`` / ``run_hdf5``, the console scripts
 ``barc4dip-cuda-speckles`` (``report/cli.py``) and ``barc4dip-cuda-batch``
-(``report/batch_cli.py``), and ``utils/profiling.py``.
+(``report/batch_cli.py``), and ``utils/profiling.py``; and the signal layer
+(``signal.fft``, ``signal.corr``, ``signal.tracking``, ``signal.summary``
+with ``pull_centrosymmetric``; ``autocorr2d``, ``spectral_summary`` and
+``template_matching`` run kernel K1a), ``maths.radial`` / ``maths.stats``,
+the ``geometry`` helpers, and the metric extensions ``visibility_map``,
+``fourier_ring_correlation``, ``psnr`` / ``ssim`` / ``ms_ssim``. The
+namespaces ``geometry``, ``maths``, ``signal`` and ``metrics`` export every
+name the JAX package's do.
 
 Work runs on the card: ``device=None`` means cuda and raises where no card
 is available; ``device="cpu"`` (``--device cpu``) asks for the CPU. See
 ROADMAP.md for what is still to port.
 """
-from . import config
+from . import config, geometry, maths, metrics, signal, utils
 from .io import read_image, write_image
 from .metrics import (
     distribution_moments,
@@ -42,11 +49,16 @@ from .report import logbook_report
 __all__ = [
     "config",
     "distribution_moments",
+    "geometry",
     "logbook_report",
+    "maths",
+    "metrics",
     "read_image",
     "sharpness_stack_stats",
     "sharpness_stats",
+    "signal",
     "speckle_stack_stats",
     "speckle_stats",
+    "utils",
     "write_image",
 ]

@@ -19,6 +19,8 @@ import torch
 
 __all__ = [
     "MIN_TILE_PX",
+    "device_array",
+    "device_arrays",
     "resolve_device",
     "to_compute",
     "upload",
@@ -77,3 +79,28 @@ def upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     else:
         t = t.to(device)
     return to_compute(t)
+
+
+def device_array(x, device=None) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor in its compute dtype: a tensor
+    stays on its own device, an array is uploaded to ``device``. Complex
+    values (complex64, complex128) pass through as they are, for the signal
+    layer's transforms and correlations."""
+    if isinstance(x, torch.Tensor):
+        return x if x.is_complex() else to_compute(x)
+    arr = np.asarray(x)
+    device = resolve_device(device)
+    if arr.dtype.kind == "c":
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return upload(arr, device)
+
+
+def device_arrays(*xs, device=None) -> tuple[torch.Tensor, ...]:
+    """:func:`device_array` of several inputs on one device: that of the
+    first tensor among them, else ``device``."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            device = x.device
+            break
+    device = resolve_device(device)
+    return tuple(device_array(x, device).to(device) for x in xs)

@@ -1,5 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Speckle and sharpness metrics of the PyTorch port."""
+from .frc import fourier_ring_correlation
+from .maps import visibility_map
 from .sharpness import (
     eigenvalues,
     inverse_autocorr_width,
@@ -24,6 +26,7 @@ __all__ = [
     "bandwidth",
     "distribution_moments",
     "eigenvalues",
+    "fourier_ring_correlation",
     "grain",
     "inverse_autocorr_width",
     "laplacian_variance",
@@ -34,4 +37,5 @@ __all__ = [
     "spectral_entropy",
     "tenengrad",
     "tracking_grid_from_frame0",
+    "visibility_map",
 ]

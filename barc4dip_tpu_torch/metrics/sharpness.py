@@ -22,7 +22,7 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
-from ..config import MIN_TILE_PX, to_compute
+from ..config import MIN_TILE_PX, device_array, to_compute
 from ..utils.checkpoint import ChunkStore
 from ..utils.time import elapsed_time, now, progress_done, progress_update
 from .common import (
@@ -47,7 +47,7 @@ from .estimators import (
     spectral_entropy_core,
     tenengrad_core,
 )
-from .speckles import _device_image, _unflatten_tiles
+from .speckles import _unflatten_tiles
 
 logger = logging.getLogger(__name__)
 
@@ -175,7 +175,7 @@ def tenengrad(image, *, eps: float = 1e-12, verbose: bool = False, device=None) 
     """(GRA6) Sobel gradient energy: tenengrad, ex, ey, re = ex/(ey+eps)."""
     data = _as_data(image)
     _check_2d_finite_any(data, "tenengrad")
-    out = tenengrad_core(_device_image(data, device), eps=eps)
+    out = tenengrad_core(device_array(data, device), eps=eps)
     res = {k: float(v) for k, v in out.items()}
     if verbose:
         logger.info(
@@ -189,7 +189,7 @@ def laplacian_variance(image, *, verbose: bool = False, device=None) -> float:
     """(LAP4) Population variance of the Laplacian."""
     data = _as_data(image)
     _check_2d_finite_any(data, "laplacian_variance")
-    var = float(laplacian_variance_core(_device_image(data, device))["laplacian_variance"])
+    var = float(laplacian_variance_core(device_array(data, device))["laplacian_variance"])
     if verbose:
         logger.info("> laplacian variance: %.6g", var)
     return var
@@ -215,7 +215,7 @@ def spectral_entropy(
     if _numel(data) < 3:
         raise ValueError("Insufficient number of spectral bins to compute normalized entropy.")
     out = spectral_entropy_core(
-        _device_image(data, device), remove_mean=remove_mean, remove_dc=remove_dc, eps=eps
+        device_array(data, device), remove_mean=remove_mean, remove_dc=remove_dc, eps=eps
     )
     Hn = float(out["spectral_entropy"])
     if not np.isfinite(Hn):
@@ -249,7 +249,7 @@ def inverse_autocorr_width(
     if radial_method not in ("binned", "interpolated"):
         raise ValueError("radial_method must be 'binned' or 'interpolated'.")
     out = inverse_autocorr_width_core(
-        _device_image(data, device), fraction=float(fraction), radial_method=str(radial_method)
+        device_array(data, device), fraction=float(fraction), radial_method=str(radial_method)
     )
     res = {k: float(v) for k, v in out.items()}
     if verbose:
@@ -281,7 +281,7 @@ def eigenvalues(
     if not bool((data != 0).any()):
         raise ValueError("eigenvalues cannot normalize an all-zero image.")
     out = eigenvalues_core(
-        _device_image(data, device), k=int(k), eps=float(eps), eig_method=str(eig_method)
+        device_array(data, device), k=int(k), eps=float(eps), eig_method=str(eig_method)
     )
     res = {key: float(v) for key, v in out.items()}
     if verbose:
@@ -348,7 +348,7 @@ def sharpness_stats(
         logger.info("\nsharpness stats for a (h x w: %.0f x %.0f) image:", h, w)
     mode, tile_shape_px = choose_tiling_mode(h, w, tiles=tiles, min_tile_px=MIN_TILE_PX)
 
-    img = _device_image(image, device)
+    img = device_array(image, device)
     metric_fn = _sharpness_device_fn(
         frozenset(groups), mode, None if saturation_value is None else float(saturation_value),
         float(eps),

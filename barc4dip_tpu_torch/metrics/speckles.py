@@ -19,7 +19,7 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
-from ..config import MIN_TILE_PX, resolve_device, to_compute, upload
+from ..config import MIN_TILE_PX, device_array, to_compute
 from ..geometry.masks import square_embed_slices
 from ..geometry.roi import odd_size, roi_grid_3x3
 from ..signal.common import lag_axis_from_step
@@ -100,14 +100,6 @@ _ALL_SPECKLE_GROUPS: set[str] = {"amplitude", "grain", "bandwidth", "stats"}
 _GRAIN_MIN_PX = 128
 
 
-def _device_image(image, device):
-    """A 2-D numpy array or tensor as a compute-dtype tensor: a tensor on
-    its own device, an array uploaded to ``device``."""
-    if isinstance(image, torch.Tensor):
-        return to_compute(image)
-    return upload(np.asarray(image), resolve_device(device))
-
-
 def _image_2d(image):
     img = image if isinstance(image, torch.Tensor) else np.asarray(image)
     if img.ndim != 2:
@@ -131,7 +123,7 @@ def amplitude(image, verbose: bool = False, device=None) -> dict:
     mu = _nanmean64(img)
     if not np.isfinite(mu) or mu <= 0.0:
         raise ValueError("Mean intensity must be positive and finite.")
-    out = amplitude_core(_device_image(img, device))
+    out = amplitude_core(device_array(img, device))
     res = {"visibility": float(out["visibility"]), "contrast": float(out["contrast"])}
     if not np.isfinite(res["contrast"]):
         raise ValueError("Invalid percentile range for Michelson contrast.")
@@ -156,7 +148,7 @@ def grain(
     if radial_method not in ("binned", "interpolated"):
         raise ValueError("radial_method must be 'binned' or 'interpolated'.")
     out = grain_core(
-        _device_image(data, device), fraction=float(fraction), radial_method=str(radial_method)
+        device_array(data, device), fraction=float(fraction), radial_method=str(radial_method)
     )
     metrics = {k: float(out[k]) for k in ("lx", "ly", "leq", "r")}
     metrics.update(
@@ -174,7 +166,7 @@ def bandwidth(image, verbose: bool = False, device=None) -> dict[str, float]:
     """Spatial-frequency bandwidth metrics from the 2D PSD (see
     estimators.bandwidth_core)."""
     img = _image_2d(image)
-    spectral = {k: float(v) for k, v in bandwidth_core(_device_image(img, device)).items()}
+    spectral = {k: float(v) for k, v in bandwidth_core(device_array(img, device)).items()}
     if not np.isfinite(spectral["feq"]):
         raise ValueError("PSD energy is not positive/finite after mean/DC removal.")
     if verbose:
@@ -250,7 +242,7 @@ def speckle_stats(
         logger.info("\nspeckle stats for a (h x w: %.0f x %.0f) image:", h, w)
     mode, tile_shape_px = choose_tiling_mode(h, w, tiles=tiles, min_tile_px=MIN_TILE_PX)
 
-    img = _device_image(image, device)
+    img = device_array(image, device)
     metric_fn = speckle_device_fn(
         frozenset(groups), mode, None if saturation_value is None else float(saturation_value),
         float(eps),
@@ -283,7 +275,7 @@ def speckle_stats(
         dev = img.device
 
         def fetch_map(image=image):
-            x = _device_image(image, dev)
+            x = device_array(image, dev)
             return _grain_map(x, flip).cpu().numpy().astype(np.float64)
 
         lag = lag_axis_from_step(N, 1.0)

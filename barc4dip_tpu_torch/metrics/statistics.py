@@ -5,10 +5,9 @@ from __future__ import annotations
 
 import logging
 
-import numpy as np
 import torch
 
-from ..config import resolve_device, to_compute, upload
+from ..config import device_array
 from ..ops.momentscore import distribution_moments_core
 
 logger = logging.getLogger(__name__)
@@ -30,10 +29,7 @@ def distribution_moments(
     Returns mean, std, variance, skewness, kurtosis (scipy.stats.describe
     conventions), frac_zero (|x| <= eps), frac_sat (>= saturation_value or
     NaN), and SNRdB = 20*log10(mean/std) with inf/nan edge handling."""
-    if isinstance(image, torch.Tensor):
-        x = to_compute(image)
-    else:
-        x = upload(np.asarray(image), resolve_device(device))
+    x = device_array(image, device)
     if x.ndim not in (1, 2):
         raise ValueError(f"Expected 1D or 2D array, got ndim={x.ndim}")
     if x.numel() == 0:

@@ -20,7 +20,11 @@ TPU gate is (``use and supported(shape) and dtype == f32``), but over a
 narrower set of shapes: the Pallas kernel takes H and W that are multiples
 of 128 in [128, 8192] (``pallas_fftp.supported``), this one only the powers
 of two in [128, 4096] (:func:`supported`). A 1536, 2560 or 3072 side, and
-any 8192 side, runs Pallas on a TPU and the plain version here:
+any 8192 side, runs Pallas on a TPU and the plain version here. The callers
+that can meet such a side are the grain and sharpness autocorrelations, the
+tracking banks, the valid NCC maps, and the signal layer's public entries
+(``signal.autocorr2d``, ``spectral_summary``, ``spectral_summary_stack``,
+``template_matching``), which take an image of any side the user hands in:
 
 - a CPU tensor takes the plain PyTorch version;
 - a CUDA tensor of a covered shape (complex64 spectra, H and W powers of

@@ -52,14 +52,15 @@ def window_sums(image, h: int, w: int):
 def zncc_prepare_image(image, h: int, w: int, *, eps: float = 1e-9):
     """Image-side quantities shared by every (h, w) template: the rfft2
     spectrum of the z-scored image (NaN-aware mean/std), window sums and
-    window variance sums."""
+    window variance sums. The spectrum is made contiguous, as kernel K1 takes
+    it: ``rfft2`` of a single 2-D image comes back strided on CUDA."""
     img = zscore2d(image, eps=eps)
     s1 = window_sums(img, h, w)
     s2 = window_sums(img * img, h, w)
     # sum over a window of (I - mean_w)^2 = S2 - S1^2/A; clamp tiny negatives
     var_sum = torch.clamp_min(s2 - (s1 * s1) / float(h * w), 0.0)
     return {
-        "s1": s1, "var_sum": var_sum, "F": torch.fft.rfft2(img),
+        "s1": s1, "var_sum": var_sum, "F": torch.fft.rfft2(img).contiguous(),
         "shape": tuple(image.shape[-2:]), "hw": (h, w),
     }
 
@@ -70,7 +71,7 @@ def prep_template(template, H: int, W: int):
     h, w = template.shape[-2], template.shape[-1]
     t = template - template.mean(dim=(-2, -1), keepdim=True)
     return {
-        "Ft": torch.fft.rfft2(F.pad(t, (0, W - w, 0, H - h))),
+        "Ft": torch.fft.rfft2(F.pad(t, (0, W - w, 0, H - h))).contiguous(),
         "energy": (t * t).sum(dim=(-2, -1)),
     }
 

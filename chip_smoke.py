@@ -14,8 +14,11 @@ Phases, one line each with its wall time:
    ``nvcc`` per source, all started together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
    at the main paths' shapes (2048^2 frames, 29-px templates; K1a on 1 and
-   4 mean-removed frames as the speckle path sends them, and on 1, 2, 3 and
-   8 standardized frames: the sharpness path's image, chunks and tail),
+   4 mean-removed frames as the speckle path sends them and on 8 as
+   ``spectral_summary_stack`` does, on 1, 2, 3 and 8 standardized frames:
+   the sharpness path's image, chunks and tail, and on one z-scored frame
+   against one zero-padded template spectrum as ``template_matching`` sends
+   it),
    timed with
    CUDA events (median of 10 single calls) beside the library call (cuFFT's
    irfft2 of the products formed beforehand), then all three split by
@@ -86,10 +89,37 @@ Phases, one line each with its wall time:
    no ``--device`` (same JSON, no kernel rebuilt, wall time apart) and with
    a path that does not exist (exit code 2); one chunk under
    ``device_trace`` (the trace names the K1 kernels);
-11. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
+11. signal: the signal layer and the metric extensions, each call run twice
+   with the second counted. Config C: ``spectral_summary`` on frame 0 (one
+   K1a; its maps and curves against a float64 run on the card at rtol 1e-4 of
+   each output's peak; the device time by kernel), the composed form
+   ``psd2d`` + ``autocorr2d`` + the two ``maths.radial_mean_*`` with the maps
+   left on the device (maps and interpolated curve exactly equal to the
+   summary's, the binned curve, whose ring sums add with atomics, within 1e-6
+   of its peak), each map to the host whole, as its leading half
+   (``pull_centrosymmetric``) and as the half in 16-bit codes (ms, bytes, max
+   error), ``spectral_summary_stack`` on the 16 frames at ``frame_chunk`` 8 as
+   a numpy stack and as a CUDA tensor (ms a frame, one K1a a chunk, the two
+   runs' interpolated curves equal and binned curves within 1e-6, frame 0
+   within 1e-5 of the single-image call). Trackers: ``template_matching`` of
+   frame 0's centre 29-px ROI, and of an even 32-px one, in frames 1-15
+   against the spiral (<= 0.05 px, one K1a a call, ms a call),
+   ``track_translation(method="template")`` equal to it;
+   ``phase_correlation`` ``"internal"`` and ``"skimage"`` with a 256-px
+   template on the 512^2 float32 stack (<= 0.5 px, no K1 launch); the
+   upsampled DFT's complex64 products against complex128 on the card.
+   Extensions: ``visibility_map`` (window 16) of frame 0 against float64 on
+   the card and of the 16-frame stack at stride 4; ``fourier_ring_correlation``
+   of frame 0 plus two noise draws against a complex128 evaluation (rings
+   1 and up within 1e-4, a finite resolution); ``psnr``, ``ssim`` and
+   ``ms_ssim`` of a blurred copy against float64. Last, ``signal.autocorr2d``
+   at a side K1 does not cover (the 1536^2 centre crop): no K1 launch,
+   ``PLAIN_BY_SHAPE`` holding that key alone for the whole phase, the result
+   against float64, and its time beside the same call at 2048^2 (K1a);
+12. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
    a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
    shift, as raw uint16 with flats, darks and 0.1% dead pixels;
-12. kernels-2: K2 against its plain version on the flat-field's own input
+13. kernels-2: K2 against its plain version on the flat-field's own input
     at (2048, 2048) and (6, 2048, 2048), exactly equal; K3 against its
     plain version at Config F (33-px tiles, step 16, radius 10: 15,625
     nodes) and on 4 frames, within 1e-5 of each output's max, and its s1
@@ -98,7 +128,7 @@ Phases, one line each with its wall time:
     mostly the wrapper's host cost; its device time and queued time per call
     stand beside it), K3 beside the library call for its numerator (one
     grouped cuDNN ``conv2d``, TF32 off);
-13. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
+14. xst: ``flat_field_correction(bad_pixel_removal=True)`` then
     ``WavefrontScanPipeline`` on the card, run twice; the second run is
     counted and timed, and one ``track_displacement_field`` at Config F is
     timed. Checks the K2/K3 launch counts (no uncovered call), the
@@ -107,12 +137,13 @@ Phases, one line each with its wall time:
     card, the per-frame tracking medians against the known motion
     (<= 0.05 px) and the wavefront against the parabola (relative error
     < 0.15, curvature radius within 10%);
-14. files-xst: the corrected XST frames and reference written as float32
+15. files-xst: the corrected XST frames and reference written as float32
     EDF files; ``WavefrontScanPipeline.run_files`` exactly equal to the
     in-memory call on the same arrays, with the same K3 launches;
-15. with ``--profile``: the metric step and the tracker of one Config D
+16. with ``--profile``: the metric step and the tracker of one Config D
     chunk timed apart, then the Config D slice, the single-image sharpness
-    call (whole, then group by group) and one XST pass under torch.profiler
+    call (whole, then group by group), ``spectral_summary`` (Config C) and
+    one XST pass under torch.profiler
     (device busy time, device time by op and kernel).
 
 Every time printed names the card and its power limit (the nvidia-smi
@@ -127,7 +158,8 @@ at 67 TFLOP/s, the published H100 SXM peaks), ``library_ms`` (null for K2,
 which has no one-call equivalent) and ``launches`` (the counted run of its
 path: Config D for K1, with ``launches_sharpness`` and ``launches_files``
 (the run from EDF files) beside it; K3 with ``launches_files`` too; for a
-standardized K1a row the sharpness path named in its ``path``), after a line of K1 launches by path. Then, as its last line,
+standardized K1a row the sharpness path named in its ``path``, for the
+B = 8 and template rows the signal phase's), after a line of K1 launches by path. Then, as its last line,
 ``{"ok": true, "device": {...}}`` for the one card it used. Any failed
 phase exits non-zero. Imports nothing of JAX.
 """
@@ -169,6 +201,15 @@ FULL_STEP_B = 4
 # whose blur (SCAN_SIGMA_STEP px a frame) is zero at frame SCAN_BEST
 SHARP_T, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_FRAME_RTOL = 8, 8, 3, 1e-5
 SCAN_T, SCAN_BEST, SCAN_SIGMA_STEP = 6, 4, 0.8
+# the signal phase: Config C's scan series on frames 0..SUMMARY_T-1 at
+# frame_chunk SUMMARY_CHUNK; the scalar trackers on frames 1..T-1 (the kernel
+# check takes frame TEMPLATE_FRAME); phase correlation with a PHASE_TPL-px
+# template on the PHASE_SIDE^2 stack; one side K1 does not cover beside one
+# it does
+SUMMARY_T, SUMMARY_CHUNK, TEMPLATE_FRAME = 16, 8, 5
+EVEN_TPL, PHASE_TPL = 32, 256
+UNCOVERED_SIDE, COVERED_SIDE = 1536, 2048
+BINNED_ATOL_REL, SUMMARY_FRAME_RTOL = 1e-6, 1e-5
 # published H100 SXM peaks at 700 W: device memory, float32 outside the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
@@ -414,43 +455,55 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     from barc4dip_tpu_torch.ops import corrcore, cuda_fftp, ncc
     from barc4dip_tpu_torch.ops.phasecorr import argmax2d
 
-    frames = upload(stack[:max(FRAME_CHUNK, SHARP_T)], dev)
+    frames = upload(stack[:max(FRAME_CHUNK, SHARP_T, SUMMARY_CHUNK)], dev)
     H, W = frames.shape[-2:]
     rows = []
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
 
-    # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core): the
-    # speckle path's batches of mean-removed frames, then the sharpness
-    # path's of standardized ones (one image, a chunk, a tail chunk and what
-    # it leaves over)
-    sharp_sizes = sorted({1, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_T % SHARP_TAIL_CHUNK} - {0})
-    for nf, standardize in [(n, False) for n in (1, FRAME_CHUNK)] + [(n, True) for n in sharp_sizes]:
-        label = f"B={nf} standardized" if standardize else f"B={nf}"
-        Fa = torch.fft.rfft2(corrcore._precondition(frames[:nf], True, standardize))
-        got = cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W))
-        want = cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W))
+    def k1a_row(label: str, F, G, planes: int) -> None:
+        """One K1a layout against its plain version, timed, with its bound."""
+        got = cuda_fftp.corr_from_rfft(F, G, s=(H, W))
+        want = cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         if not err <= KERNEL_ATOL_REL * scale:
             raise AssertionError(f"K1a {label}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
-        ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
-        plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
+        ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
+        plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
         # the library call: cuFFT's irfft2 of the product formed beforehand
-        prod = Fa[:, None] * Fa[:, None].conj()
+        prod = (F if F.dim() == 2 else F[:, None]) * G.conj()
         library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
         log(f"K1a corr_from_rfft {label} {H}x{W}: max_abs_err {err:.3e} "
             f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library irfft2 {library_ms:.3f} ms; {card}")
-        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(Fa, Fa[:, None], s=(H, W)))
-        log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(Fa, Fa[:, None], s=(H, W)))
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
+        log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
         log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
-        flops = nf * (6 * Fa.shape[-2] * Fa.shape[-1] + fft_flops(H * W))
+        flops = planes * (6 * F.shape[-2] * F.shape[-1] + fft_flops(H * W))
         rows.append({"name": f"corr_from_rfft {label}", "route": "cuda",
                      "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
                      "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-                     **bound(nbytes(Fa, Fa[:, None], got), flops), "library_ms": library_ms})
+                     **bound(nbytes(F, G, got), flops), "library_ms": library_ms})
+
+    # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core): the
+    # batches of mean-removed frames (one image and a chunk of the speckle
+    # path, a chunk of spectral_summary_stack), then the sharpness path's of
+    # standardized ones (one image, a chunk, a tail chunk and what it leaves
+    # over)
+    plain_sizes = sorted({1, FRAME_CHUNK, SUMMARY_CHUNK})
+    sharp_sizes = sorted({1, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_T % SHARP_TAIL_CHUNK} - {0})
+    for nf, standardize in [(n, False) for n in plain_sizes] + [(n, True) for n in sharp_sizes]:
+        Fa = torch.fft.rfft2(corrcore._precondition(frames[:nf], True, standardize))
+        k1a_row(f"B={nf} standardized" if standardize else f"B={nf}", Fa, Fa[:, None], nf)
+
+    # K1a as template_matching sends it (ncc.ncc_valid): the spectrum of one
+    # z-scored frame against one template's zero-padded spectrum, F != G
+    y0, x0 = (H - s) // 2, (W - s) // 2
+    prep = ncc.zncc_prepare_image(frames[TEMPLATE_FRAME], s, s, eps=1e-9)
+    tpl = ncc.prep_template(frames[0, y0 : y0 + s, x0 : x0 + s][None], H, W)
+    k1a_row("template B=1", prep["F"], tpl["Ft"], 1)
 
     # K1b: the tracker's NCC bank (ncc.ncc_bank_masked_peaks), frame-0
     # templates against later frames
@@ -722,6 +775,16 @@ def run_resident(torch, dev, stack, host_out: dict, card: str) -> dict:
     return {"launches": launches, "warm_s": warm_s}
 
 
+def make_phase_stack() -> np.ndarray:
+    """The OPT_T x PHASE_SIDE^2 float32 spiral stack of the phase-tracking
+    checks (phase correlation does not lock on to Config D's frames)."""
+    from barc4dip_tpu_torch.utils import speckle_stack, spiral_motion
+
+    dys, dxs = spiral_motion(OPT_T)
+    return speckle_stack(OPT_T, (PHASE_SIDE, PHASE_SIDE), grain_px=PHASE_GRAIN_PX, mean_counts=1000.0,
+                         dys=dys, dxs=dxs, seed=np.random.default_rng(SEED), dtype=np.float32)
+
+
 def run_options(torch, dev, stack, card: str) -> dict:
     """The windowed search, phase tracking and checkpoints on frames
     0..OPT_T-1 (phase on its own stack, see the module docstring)."""
@@ -729,7 +792,6 @@ def run_options(torch, dev, stack, card: str) -> dict:
 
     import barc4dip_tpu_torch as port
     from barc4dip_tpu_torch.ops import cuda_fftp
-    from barc4dip_tpu_torch.utils import speckle_stack, spiral_motion
 
     sub = stack[:OPT_T]
     kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
@@ -765,10 +827,7 @@ def run_options(torch, dev, stack, card: str) -> dict:
 
     pk = dict(metrics="stats", tiles=False, tracking_method="phase", roi_grain_factor=12.0,
               frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
-    dys, dxs = spiral_motion(OPT_T)
-    pst = speckle_stack(OPT_T, (PHASE_SIDE, PHASE_SIDE), grain_px=PHASE_GRAIN_PX, mean_counts=1000.0,
-                        dys=dys, dxs=dxs, seed=np.random.default_rng(SEED), dtype=np.float32)
-    ph = port.speckle_stack_stats(pst, **pk)
+    ph = port.speckle_stack_stats(make_phase_stack(), **pk)
     err = spiral_error(ph)
     on_d = spiral_error(port.speckle_stack_stats(sub, **pk))
     log(f"phase tracking (roi_grain_factor 12, ROI {ph['meta']['tracking']['roi_size_yx'][0]} px) on "
@@ -1103,6 +1162,272 @@ def profiled(torch, label: str, fn) -> None:
     log(f"profiled {label}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
         f"{dev_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} kernels and copies")
     log(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
+
+
+# -- the signal layer and the metric extensions ---------------------------------
+
+def host_ms(torch, fn, repeats: int = 3) -> float:
+    """Least host-clock time (ms) of ``repeats`` synchronised calls."""
+    best = np.inf
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return float(best)
+
+
+def run_signal(torch, dev, stack, s: int, card: str) -> dict:
+    """The signal layer and the metric extensions on the card (see the
+    module docstring, phase 11). Every call runs twice; the second is
+    counted."""
+    from scipy import ndimage
+
+    from barc4dip_tpu_torch import maths, metrics, signal
+    from barc4dip_tpu_torch.metrics import frc as frc_mod
+    from barc4dip_tpu_torch.metrics import maps as maps_mod
+    from barc4dip_tpu_torch.metrics import perceptual
+    from barc4dip_tpu_torch.ops import cuda_fftp, upsampled_dft
+    from barc4dip_tpu_torch.signal import tracking
+    from barc4dip_tpu_torch.utils import spiral_motion
+
+    frame = stack[0]
+    H, W = frame.shape
+    none, one_k1a = {"cols": 0, "rows": 0, "rows_ncc": 0}, {"cols": 1, "rows": 1, "rows_ncc": 0}
+    res: dict = {}
+    plain_seen: dict = {}
+
+    def counted(fn):
+        """(result, ms, K1 launches) of the second of two calls."""
+        fn()
+        cuda_fftp.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in cuda_fftp.PLAIN_BY_SHAPE.items():
+            plain_seen[k] = plain_seen.get(k, 0) + v
+        return out, ms, dict(cuda_fftp.LAUNCHES)
+
+    def want(label, launches, expected):
+        if launches != expected:
+            raise AssertionError(f"{label} launched K1 {launches}: {expected} wanted")
+
+    # Config C: the quick-look in one call, against float64 and the composed calls
+    summ, c_ms, launches = counted(lambda: signal.spectral_summary(frame, device=dev))
+    want("spectral_summary", launches, one_k1a)
+    res["spectral_summary"] = launches
+    res["config_c_ms"] = c_ms
+    ref = signal.spectral_summary(frame.astype(np.float64), device=dev)
+    errs = {k: leaf_rel_err(summ[k].cpu().numpy() if k in ("psd", "autocorr") else summ[k],
+                            ref[k].cpu().numpy() if k in ("psd", "autocorr") else ref[k])
+            for k in ("psd", "autocorr", "radial_binned", "radial_interpolated")}
+    log(f"Config C spectral_summary {frame.shape} {frame.dtype}: {c_ms:.2f} ms (counted run); K1 launches "
+        f"{json.dumps(launches)}; vs float64 run on the card, rel err of each output's peak: "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (rtol {RTOL:g}); {card}")
+    if not max(errs.values()) <= RTOL:
+        raise AssertionError(f"spectral_summary float64 check: {errs}")
+    log_device_split(torch, "spectral_summary", lambda: signal.spectral_summary(frame, device=dev))
+
+    def composed():
+        P, _, _ = signal.psd2d(frame, device=dev)
+        ac, _, _ = signal.autocorr2d(frame, device=dev)
+        rb, _ = maths.radial_mean_binned(ac)
+        ri, _ = maths.radial_mean_interpolated(ac)
+        return P, ac, rb.cpu().numpy(), ri.cpu().numpy()
+
+    (P, ac, rb, ri), comp_ms, launches = counted(composed)
+    want("the composed calls", launches, one_k1a)
+    res["psd2d + autocorr2d + radial means"] = launches
+    binned_err = leaf_rel_err(summ["radial_binned"], rb)
+    log(f"composed psd2d + autocorr2d + radial_mean_binned + radial_mean_interpolated (maps left on the "
+        f"device): {comp_ms:.2f} ms; maps and interpolated curve equal to spectral_summary's: "
+        f"{torch.equal(P, summ['psd'])}, {torch.equal(ac, summ['autocorr'])}, "
+        f"{np.array_equal(ri, summ['radial_interpolated'])}; binned curve (atomic ring sums) within "
+        f"{binned_err:.3e} of its peak (gate {BINNED_ATOL_REL:g}); {card}")
+    if not (torch.equal(P, summ["psd"]) and torch.equal(ac, summ["autocorr"])
+            and np.array_equal(ri, summ["radial_interpolated"]) and binned_err <= BINNED_ATOL_REL):
+        raise AssertionError("spectral_summary differs from the composed calls")
+
+    # the maps to the host: whole, half (mirrored on the host), half as 16-bit codes
+    for name, dmap in (("psd", summ["psd"]), ("autocorr", summ["autocorr"])):
+        whole = dmap.cpu().numpy()
+        span, peak = float(whole.max() - whole.min()), float(np.abs(whole).max())
+        half_rows, eps32 = H // 2 + 1, float(np.finfo(np.float32).eps)
+        modes = {
+            "whole .cpu()": (lambda: dmap.cpu().numpy(), whole.nbytes, 0.0),
+            "half": (lambda: signal.pull_centrosymmetric(dmap), half_rows * W * 4, 200 * eps32 * peak),
+            # half a code, and the float32 arithmetic that decodes it on the host
+            "half u16": (lambda: signal.pull_centrosymmetric(dmap, quantize="u16"), half_rows * W * 2 + 8,
+                         span / (2 * 65535) * 1.001 + 8 * eps32 * peak),
+        }
+        parts = []
+        for mode, (fn, moved, gate) in modes.items():
+            err = float(np.abs(fn().astype(np.float64) - whole).max())
+            ms = host_ms(torch, fn)
+            parts.append(f"{mode} {ms:.2f} ms, {moved} bytes, max abs err {err:.3e} (gate {gate:.3e})")
+            res[f"pull_{name}_{mode.split()[-1]}_ms"] = ms
+            if not err <= gate:
+                raise AssertionError(f"pull of the {name} map, {mode}: max abs err {err:.3e} > {gate:.3e}")
+        log(f"{name} map {whole.shape} to the host (peak {peak:.3e}, range {span:.3e}): " + "; ".join(parts)
+            + f"; {card}")
+
+    # the scan series: radial curves of SUMMARY_T frames at frame_chunk SUMMARY_CHUNK
+    sub = stack[:SUMMARY_T]
+    st = torch.from_numpy(sub).to(dev)
+    chunks = -(-SUMMARY_T // SUMMARY_CHUNK)
+    per_chunk = {"cols": chunks, "rows": chunks, "rows_ncc": 0}
+    host, host_series_ms, launches = counted(
+        lambda: signal.spectral_summary_stack(sub, frame_chunk=SUMMARY_CHUNK, device=dev))
+    want("spectral_summary_stack", launches, per_chunk)
+    res["spectral_summary_stack"] = launches
+    resident, dev_series_ms, launches = counted(lambda: signal.spectral_summary_stack(st, frame_chunk=SUMMARY_CHUNK))
+    want("spectral_summary_stack on a CUDA tensor", launches, per_chunk)
+    res["spectral_summary_stack resident"] = launches
+    res["series_ms_per_frame"], res["series_resident_ms_per_frame"] = host_series_ms / SUMMARY_T, dev_series_ms / SUMMARY_T
+    same_i = np.array_equal(host["radial_interpolated"], resident["radial_interpolated"])
+    b_err = leaf_rel_err(host["radial_binned"], resident["radial_binned"])
+    f0 = max(leaf_rel_err(host[k][0], summ[k]) for k in ("radial_binned", "radial_interpolated"))
+    log(f"spectral_summary_stack {sub.shape} {sub.dtype}, frame_chunk {SUMMARY_CHUNK}: "
+        f"{host_series_ms / SUMMARY_T:.2f} ms a frame from a numpy stack, {dev_series_ms / SUMMARY_T:.2f} ms a "
+        f"frame from a CUDA tensor; K1 launches {json.dumps(launches)}; numpy vs tensor: interpolated curves "
+        f"equal {same_i}, binned within {b_err:.3e} (gate {BINNED_ATOL_REL:g}); frame 0 vs the single-image "
+        f"call {f0:.3e} (gate {SUMMARY_FRAME_RTOL:g}); {card}")
+    if not (same_i and b_err <= BINNED_ATOL_REL and f0 <= SUMMARY_FRAME_RTOL
+            and host["radial_binned"].shape == (SUMMARY_T, H // 2 + 1) and np.isfinite(host["radial_interpolated"]).all()):
+        raise AssertionError(f"spectral_summary_stack: equal {same_i}, binned {b_err:.3e}, frame 0 {f0:.3e}")
+
+    # the scalar trackers against the spiral
+    dys, dxs = spiral_motion(stack.shape[0])
+    y0, x0 = (H - s) // 2, (W - s) // 2
+    tpl = frame[y0 : y0 + s, x0 : x0 + s]
+    e0 = (H - EVEN_TPL) // 2
+    tpl_even = frame[e0 : e0 + EVEN_TPL, e0 : e0 + EVEN_TPL]
+    for label, template in ((f"{s}-px", tpl), (f"{EVEN_TPL}-px (even)", tpl_even)):
+        worst, times = 0.0, []
+        for k in range(1, stack.shape[0]):
+            got, ms, launches = counted(lambda: signal.template_matching(template, stack[k], device=dev))
+            want(f"template_matching {label}", launches, one_k1a)
+            worst = max(worst, float(np.hypot(got[0] - dys[k], got[1] - dxs[k])))
+            times.append(ms)
+        log(f"template_matching, frame 0's centre {label} ROI in frames 1-{stack.shape[0] - 1}: max |shift - "
+            f"spiral| {worst:.4f} px (gate {TRACK_GATE_PX} px), median {np.median(times):.2f} ms a call, K1 "
+            f"launches a call {json.dumps(launches)}; last (dy, dx, peak, snr) "
+            f"{tuple(float(f'{v:.4f}') for v in got)}; {card}")
+        if not worst <= TRACK_GATE_PX:
+            raise AssertionError(f"template_matching {label}: {worst:.4f} px > {TRACK_GATE_PX} px")
+        res[f"template_{label.split('-')[0]}_ms"] = float(np.median(times))
+    res["template_matching"] = launches
+    k = TEMPLATE_FRAME
+    via, ms, launches = counted(lambda: signal.track_translation(tpl, stack[k], method="template", device=dev))
+    direct = signal.template_matching(tpl, stack[k], backend="internal", device=dev)
+    want("track_translation(method='template')", launches, one_k1a)
+    res["track_translation template"] = launches
+    log(f"track_translation(method='template') on frame {k}: {via} in {ms:.2f} ms, equal to "
+        f"template_matching: {via == direct}; K1 launches {json.dumps(launches)}")
+    if via != direct:
+        raise AssertionError(f"track_translation {via} != template_matching {direct}")
+
+    pst = make_phase_stack()
+    p0 = (PHASE_SIDE - PHASE_TPL) // 2
+    ptpl = pst[0, p0 : p0 + PHASE_TPL, p0 : p0 + PHASE_TPL]
+    pdys, pdxs = spiral_motion(OPT_T)
+    for backend in ("internal", "skimage"):
+        worst, times = 0.0, []
+        for k in range(1, OPT_T):
+            got, ms, launches = counted(lambda: signal.phase_correlation(ptpl, pst[k], backend=backend, device=dev))
+            want(f"phase_correlation {backend}", launches, none)
+            worst = max(worst, float(np.hypot(got[0] - pdys[k], got[1] - pdxs[k])))
+            times.append(ms)
+        log(f"phase_correlation backend={backend!r}, {PHASE_TPL}-px template on {OPT_T - 1} x {PHASE_SIDE}^2 "
+            f"float32 frames: max |shift - spiral| {worst:.4f} px (gate {PHASE_GATE_PX} px), median "
+            f"{np.median(times):.2f} ms a call, no K1 launch; last {got}; {card}")
+        if not worst <= PHASE_GATE_PX or np.isnan(got[2]) != (backend == "skimage"):
+            raise AssertionError(f"phase_correlation {backend}: {worst:.4f} px, peak {got[2]}")
+        res[f"phase_{backend}_ms"] = float(np.median(times))
+    res["phase_correlation"] = launches
+
+    # the upsampled DFT's two complex products (cuBLAS): complex64 against complex128
+    img_z, tpl_pad = tracking._embedded_pair(torch.from_numpy(pst[OPT_T - 1]).to(dev), torch.from_numpy(ptpl).to(dev),
+                                             tracking._centered_slices(PHASE_SIDE, PHASE_SIDE, PHASE_TPL, PHASE_TPL), 1e-9)
+    prod = torch.fft.fft2(img_z) * torch.fft.fft2(tpl_pad).conj()
+    prod = prod / torch.clamp_min(prod.abs(), 100 * torch.finfo(torch.float32).eps)
+    offsets = torch.tensor([7.0 - 10 * pdys[OPT_T - 1], 7.0 - 10 * pdxs[OPT_T - 1]], device=dev)
+    up64 = upsampled_dft.upsampled_dft(prod.conj(), 15, 10, offsets.float())
+    up128 = upsampled_dft.upsampled_dft(prod.conj().to(torch.complex128), 15, 10, offsets.double())
+    up_err = float((up64 - up128).abs().max() / up128.abs().max())
+    log(f"upsampled_dft (two complex matrix products, {PHASE_SIDE}^2 -> 15x15): complex64 within {up_err:.3e} "
+        f"of complex128 on the card, relative to the peak (gate {RTOL:g}: TF32 would lose it)")
+    if not (up64.dtype == torch.complex64 and up_err <= RTOL):
+        raise AssertionError(f"upsampled_dft complex64 vs complex128: {up_err:.3e}")
+
+    # the metric extensions
+    vis, vis_ms, launches = counted(lambda: metrics.visibility_map(frame, window=16, device=dev))
+    want("visibility_map", launches, none)
+    vis64 = maps_mod._visibility_frames(torch.from_numpy(frame.astype(np.float64)).to(dev)[None], 16, 1)[0]
+    vis_err = float(np.nanmax(np.abs(vis / vis64.cpu().numpy() - 1.0)))
+    _, vstack_ms, _ = counted(lambda: metrics.visibility_map(sub, window=16, stride=4, frame_chunk=SUMMARY_CHUNK, device=dev))
+    log(f"visibility_map window 16: {vis.shape} map of frame 0 in {vis_ms:.2f} ms, max rel err {vis_err:.3e} vs "
+        f"float64 on the card (gate {RTOL:g}); {SUMMARY_T}-frame stack at stride 4: {vstack_ms / SUMMARY_T:.2f} ms "
+        f"a frame; {card}")
+    if not (vis.shape == (H - 15, W - 15) and np.isfinite(vis).all() and vis_err <= RTOL):
+        raise AssertionError(f"visibility_map: shape {vis.shape}, rel err {vis_err:.3e}")
+    res["visibility_ms"], res["visibility_stack_ms_per_frame"] = vis_ms, vstack_ms / SUMMARY_T
+
+    rng = np.random.default_rng(SEED + 2)
+    base = frame.astype(np.float32)
+    a = base + rng.normal(scale=0.05 * MEAN_COUNTS, size=frame.shape).astype(np.float32)
+    b = base + rng.normal(scale=0.05 * MEAN_COUNTS, size=frame.shape).astype(np.float32)
+    frc, frc_ms, launches = counted(lambda: metrics.fourier_ring_correlation(a, b, device=dev))
+    want("fourier_ring_correlation", launches, none)
+    ta, tb = (torch.from_numpy(v.astype(np.float64)).to(dev) for v in (a, b))
+    ref_curve = frc_mod._frc_curve(ta - ta.mean(), tb - tb.mean(), complex_dtype=torch.complex128).cpu().numpy()
+    frc_err = float(np.abs(frc["frc"][1:] - ref_curve[1:]).max())  # ring 0 is the mean-removed DC bin alone
+    log(f"fourier_ring_correlation of frame 0 + two noise draws: {frc_ms:.2f} ms; curve within {frc_err:.3e} of a "
+        f"complex128 evaluation on the card (gate {RTOL:g}, rings 1-{len(ref_curve) - 1}); resolution "
+        f"{frc['resolution_cyc_per_px']:.5f} cycles/px = {frc['resolution_px']:.3f} px; {card}")
+    if not (frc_err <= RTOL and np.isfinite(frc["resolution_px"])):
+        raise AssertionError(f"FRC: curve {frc_err:.3e}, resolution {frc['resolution_px']}")
+    res["frc_ms"] = frc_ms
+
+    blurred = ndimage.gaussian_filter(base, 1.5)
+    parts = []
+    for name, fn in (("psnr", perceptual.psnr), ("ssim", perceptual.ssim), ("ms_ssim", perceptual.ms_ssim)):
+        val, ms, launches = counted(lambda: fn(blurred, base, device=dev))
+        want(name, launches, none)
+        val64 = fn(blurred.astype(np.float64), base.astype(np.float64), device=dev)
+        err = abs(val - val64) / abs(val64)
+        parts.append(f"{name} {val:.6f} in {ms:.2f} ms (float64 {val64:.6f}, rel err {err:.2e})")
+        if not err <= RTOL:
+            raise AssertionError(f"{name}: {val} vs float64 {val64}")
+        res[f"{name}_ms"] = ms
+    log(f"frame 0 blurred (sigma 1.5 px) against frame 0, gate {RTOL:g}: " + "; ".join(parts) + f"; {card}")
+
+    # one side K1 does not cover, beside one it does
+    if plain_seen:
+        raise AssertionError(f"the signal phase took the plain path for {plain_seen} before the uncovered side")
+    c0 = (H - UNCOVERED_SIDE) // 2
+    crop = torch.from_numpy(frame[c0 : c0 + UNCOVERED_SIDE, c0 : c0 + UNCOVERED_SIDE].copy()).to(dev)
+    (ac_u, _, _), _, launches = counted(lambda: signal.autocorr2d(crop))
+    key = f"corr:{UNCOVERED_SIDE}x{UNCOVERED_SIDE}:complex64"
+    want(f"autocorr2d at {UNCOVERED_SIDE}^2", launches, none)
+    if plain_seen != {key: 1}:
+        raise AssertionError(f"autocorr2d at {UNCOVERED_SIDE}^2: plain by shape {plain_seen}, {{{key!r}: 1}} wanted")
+    res[f"autocorr2d {UNCOVERED_SIDE}"] = launches
+    u_err = leaf_rel_err(ac_u.cpu().numpy(), signal.autocorr2d(crop.double())[0].cpu().numpy())
+    full = torch.from_numpy(frame).to(dev)
+    u_ms = time_ms(torch, lambda: signal.autocorr2d(crop))
+    k_ms = time_ms(torch, lambda: signal.autocorr2d(full))
+    res["autocorr2d_uncovered_ms"], res["autocorr2d_covered_ms"] = u_ms, k_ms
+    log(f"signal.autocorr2d of a CUDA tensor, CUDA events, median of {REPEATS}: {UNCOVERED_SIDE}^2 (plain path, "
+        f"counted as {key}, max rel err {u_err:.3e} vs float64) {u_ms:.3f} ms = "
+        f"{u_ms / UNCOVERED_SIDE**2 * 1e6:.4f} ns a pixel; {COVERED_SIDE}^2 (K1a) {k_ms:.3f} ms = "
+        f"{k_ms / COVERED_SIDE**2 * 1e6:.4f} ns a pixel; {card}")
+    if not u_err <= RTOL:
+        raise AssertionError(f"autocorr2d at {UNCOVERED_SIDE}^2 vs float64: {u_err:.3e}")
+    return res
 
 
 # -- the XST slice: flat-field with bad-pixel repair, dense tracking ---------
@@ -1812,11 +2137,15 @@ def main() -> int:
 
     with Phase("files"):
         files = run_files(torch, dev, stack, sharp["scan"], res["warm_s"], have, card)
+
+    with Phase("signal"):
+        sig = run_signal(torch, dev, stack, s, card)
     by_path = {"slice": res["launches"], "slice map reads": res["map_launches"],
                "speckle_stats": single["launches"], "speckle_stats map read": single["map_launches"],
                "resident": resident["launches"], **options, "full_step_fn": full_step["launches"],
                **{k: v for k, v in sharp.items() if isinstance(v, dict)},
-               **{k: v for k, v in files.items() if isinstance(v, dict)}}
+               **{k: v for k, v in files.items() if isinstance(v, dict)},
+               **{k: v for k, v in sig.items() if isinstance(v, dict)}}
     log(f"K1 launches by path (counted runs): {json.dumps(by_path)}")
 
     with Phase("data-xst"):
@@ -1837,6 +2166,9 @@ def main() -> int:
         with Phase("profile"):
             profile_slice(torch, dev, stack)
             profile_sharpness(torch, dev, stack)
+            from barc4dip_tpu_torch import signal
+
+            profiled(torch, "spectral_summary (Config C)", lambda: signal.spectral_summary(stack[0], device=dev))
             profiled(torch, "xst pass (upload, flat-field, wavefront scan)", xst["one_pass"])
 
     for row in rows:
@@ -1850,7 +2182,10 @@ def main() -> int:
             row["launches"] = res["launches"][key]
             row["launches_files"] = files["run_files"][key]
             row["launches_sharpness"] = sharp["sharpness_stats"][key]
-            if row["name"].endswith("standardized"):  # a shape of the sharpness paths only
+            if row["name"].endswith(f"B={SUMMARY_CHUNK}") or "template" in row["name"]:  # shapes of the signal phase only
+                row["path"] = "template_matching" if "template" in row["name"] else "spectral_summary_stack"
+                row["launches"] = sig[row["path"]][key]
+            elif row["name"].endswith("standardized"):  # a shape of the sharpness paths only
                 nf = int(row["name"].split("=")[1].split()[0])
                 row["path"] = ("sharpness_stats" if nf == 1 else "sharpness stack" if nf == SHARP_CHUNK
                                else f"sharpness stack chunk {SHARP_TAIL_CHUNK}")

@@ -24,6 +24,7 @@ import torch
 import barc4dip_tpu.io as jio
 import barc4dip_tpu_torch as tdip
 import barc4dip_tpu_torch.io as tio
+from barc4dip_tpu_torch.metrics import perceptual
 from barc4dip_tpu.report.batch_cli import main as j_batch
 from barc4dip_tpu.report.cli import main as j_cli
 from barc4dip_tpu_torch.models import SharpnessScanPipeline, SpeckleStackPipeline, WavefrontScanPipeline
@@ -370,6 +371,28 @@ _RULE_CASES = {
         st, flats=np.full(st.shape[1:], 2.0, np.float32), **dev),
     "to_uint16": lambda st, p, dev: tdip.utils.dtype.to_uint16(st.astype(np.float32), **dev),
     "percentile_range": lambda st, p, dev: tdip.utils.range.percentile_minmax_range(st[0], **dev),
+    "fft2d": lambda st, p, dev: tdip.signal.fft2d(st[0], **dev),
+    "psd1d": lambda st, p, dev: tdip.signal.psd1d(st[0, 0], **dev),
+    "psd2d": lambda st, p, dev: tdip.signal.psd2d(st[0], **dev),
+    "xcorr1d": lambda st, p, dev: tdip.signal.xcorr1d(st[0, 0], st[1, 0], **dev),
+    "xcorr2d": lambda st, p, dev: tdip.signal.xcorr2d(st[0], st[1], **dev),
+    "autocorr2d": lambda st, p, dev: tdip.signal.autocorr2d(st[0], **dev),
+    "spectral_summary": lambda st, p, dev: tdip.signal.spectral_summary(st[0], **dev),
+    "spectral_summary_stack": lambda st, p, dev: tdip.signal.spectral_summary_stack(st, **dev),
+    "template_matching": lambda st, p, dev: tdip.signal.template_matching(st[0, 60:101, 60:101], st[1], **dev),
+    "phase_correlation": lambda st, p, dev: tdip.signal.phase_correlation(st[0, 40:120, 40:120], st[1], **dev),
+    "phase_correlation_skimage": lambda st, p, dev: tdip.signal.phase_correlation(
+        st[0, 40:120, 40:120], st[1], backend="skimage", **dev),
+    "track_translation": lambda st, p, dev: tdip.signal.track_translation(st[0, 40:120, 40:120], st[1], **dev),
+    "radial_mean_binned": lambda st, p, dev: tdip.maths.radial_mean_binned(st[0], **dev),
+    "radial_mean_interpolated": lambda st, p, dev: tdip.maths.radial_mean_interpolated(st[0], **dev),
+    "width_at_fraction": lambda st, p, dev: tdip.maths.width_at_fraction(st[0, 0], **dev),
+    "distance_at_fraction_from_peak": lambda st, p, dev: tdip.maths.distance_at_fraction_from_peak(st[0, 0], **dev),
+    "visibility_map": lambda st, p, dev: tdip.metrics.visibility_map(st, **dev),
+    "fourier_ring_correlation": lambda st, p, dev: tdip.metrics.fourier_ring_correlation(st[0], st[1], **dev),
+    "psnr": lambda st, p, dev: perceptual.psnr(st[0], st[1], **dev),
+    "ssim": lambda st, p, dev: perceptual.ssim(st[0], st[1], **dev),
+    "ms_ssim": lambda st, p, dev: perceptual.ms_ssim(st[0], st[1], levels=2, **dev),
     "speckles_cli": lambda st, p, dev: cli.main(["-s", p[0], "--no_tiles", *(["--device", "cpu"] if dev else [])]),
     "batch_cli": lambda st, p, dev: batch_cli.main(
         [*p, "--no-tiles", "--metrics", "amplitude", *(["--device", "cpu"] if dev else [])]),

@@ -219,6 +219,26 @@ def test_uncovered_shape_takes_plain_and_is_counted(dev):
     torch.testing.assert_close(got, cuda_fftp.corr_from_rfft_plain(F, F[:, None], s=(228, 228)))
 
 
+@pytest.mark.parametrize("side, tpl", [(256, 29), (2048, 29), (512, 32)])
+def test_ncc_valid_of_one_image_launches_k1a(dev, side, tpl):
+    """``ncc_valid`` as ``signal.template_matching`` calls it: one 2-D image
+    (whose ``rfft2`` comes back strided on CUDA) against one template, odd
+    or even: one K1a pair, no plain path, the map the plain correlation
+    gives on the same prepared spectra."""
+    frames = _frames(dev, 2, side)
+    y0 = (side - tpl) // 2
+    template = frames[0, y0 : y0 + tpl, y0 : y0 + tpl]
+    cuda_fftp.reset_counts()
+    got = ncc.ncc_valid(frames[1], template)
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    prep = ncc.zncc_prepare_image(frames[1], tpl, tpl)
+    bank = ncc.prep_template(template[None], side, side)
+    numer = cuda_fftp.corr_from_rfft_plain(prep["F"], bank["Ft"], s=(side, side))
+    want = ncc._divide(numer[..., : side - tpl + 1, : side - tpl + 1], prep["var_sum"], bank["energy"], 1e-9)[0]
+    assert got.shape == (side - tpl + 1, side - tpl + 1)
+    assert float((got - want).abs().max()) <= ATOL_REL * float(want.abs().max())
+
+
 def test_wrong_layout_raises(dev):
     a = _frames(dev, 2, 128)
     F = torch.fft.rfft2(a)

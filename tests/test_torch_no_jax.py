@@ -2,8 +2,9 @@
 """The port stands without jax: importing it and driving it on the CPU (a
 tiny stack at the defaults, one lazy map read, a tensor stack,
 ``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
-a focus scan, a report, an EDF written and read back, both console scripts
-and the pipelines' ``run_files``) pulls in neither jax nor the JAX package,
+a focus scan, a report, an EDF written and read back, both console scripts,
+the pipelines' ``run_files``, the signal layer and the metric extensions)
+pulls in neither jax nor the JAX package,
 and launches no kernel; its ``io`` imports with ``h5py`` and Pillow hidden.
 ``chip_smoke.py`` needs a
 card, reports the one card it used, and reads lazy maps only by frame."""
@@ -20,7 +21,12 @@ sys.modules["h5py"] = sys.modules["PIL"] = None  # hidden while the port is impo
 import numpy as np
 import barc4dip_tpu_torch as port
 import barc4dip_tpu_torch.io
-from barc4dip_tpu_torch import io, maths, models, preprocessing, report, signal
+from barc4dip_tpu_torch import geometry, io, maths, metrics, models, preprocessing, report, signal
+from barc4dip_tpu_torch.geometry import crop, masks, roi
+from barc4dip_tpu_torch.maths import radial, stats
+from barc4dip_tpu_torch.metrics import frc, maps, perceptual
+from barc4dip_tpu_torch.ops import corrcore, fftcore, symmetry, upsampled_dft
+from barc4dip_tpu_torch.signal import corr, fft, summary, tracking
 from barc4dip_tpu_torch.io import edf, h5, native, rw, tiff, uti_EdfFile
 from barc4dip_tpu_torch.report import batch_cli, cli
 from barc4dip_tpu_torch.utils import profiling
@@ -75,6 +81,19 @@ with tempfile.TemporaryDirectory() as tmp:
     assert "# Speckle summary" in open(os.path.join(tmp, "out.txt")).read()
     files = models.SpeckleStackPipeline(device="cpu").run_files(paths)
     assert np.array_equal(files["temporal"]["abs"]["dy"], out["temporal"]["abs"]["dy"])
+frame = stack[0].astype(np.float32)
+summ = signal.spectral_summary(stack[0], device="cpu")
+assert np.isfinite(summ["radial_binned"]).all() and summ["autocorr"].shape == (128, 128)
+assert np.isfinite(signal.spectral_summary_stack(stack, device="cpu")["radial_interpolated"]).all()
+assert signal.pull_centrosymmetric(summ["psd"]).shape == (128, 128)
+dy, dx, peak, snr = signal.template_matching(frame[50:79, 50:79], frame, subpixel=False, device="cpu")
+assert (dy, dx) == (1.0, 1.0) and peak > 0.99
+assert np.isfinite(signal.track_translation(frame[32:96, 32:96], frame, device="cpu")).all()
+assert np.isfinite(metrics.visibility_map(stack[0], device="cpu")).all()
+assert np.isfinite(metrics.fourier_ring_correlation(stack[0], stack[1], device="cpu")["frc"][1:]).all()
+assert 0.0 < perceptual.ssim(stack[0], stack[1], device="cpu") < 1.0
+assert maths.width_at_fraction(summ["radial_binned"], device="cpu")[0] > 0
+assert geometry.pad_to_square(torch.zeros(3, 5)).shape == (5, 5)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
 assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES

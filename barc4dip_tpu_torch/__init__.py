@@ -27,9 +27,14 @@ writers, the native C++ codec of ``native/dipio.cpp``), the pipelines'
 with ``pull_centrosymmetric``; ``autocorr2d``, ``spectral_summary`` and
 ``template_matching`` run kernel K1a), ``maths.radial`` / ``maths.stats``,
 the ``geometry`` helpers, and the metric extensions ``visibility_map``,
-``fourier_ring_correlation``, ``psnr`` / ``ssim`` / ``ms_ssim``. The
-namespaces ``geometry``, ``maths``, ``signal`` and ``metrics`` export every
-name the JAX package's do.
+``fourier_ring_correlation``, ``psnr`` / ``ssim`` / ``ms_ssim``; and the
+rest of preprocessing: ``preprocessing.deconvolve_psf`` (Wiener,
+Richardson-Lucy, unsupervised Wiener), ``clahe``, ``correct_distortion`` /
+``distortion_map`` and ``register_stack`` / ``shift_stack`` beside
+``flat_field_correction``, with ``barc4dip-cuda-batch --register``. Kernel
+K1 takes every H and W that are multiples of 128 up to 8192, as the TPU
+kernel does. The namespaces ``geometry``, ``maths``, ``signal``,
+``metrics`` and ``preprocessing`` export every name the JAX package's do.
 
 Work runs on the card: ``device=None`` means cuda and raises where no card
 is available; ``device="cpu"`` (``--device cpu``) asks for the CPU. See

@@ -13,35 +13,50 @@
 //   out[o] = irfft2(F[o / K] * conj(G[g(o)]), s=(H, W))      (numpy irfft)
 //   g(o)   = o % K when the bank is shared by every image, else o
 //
-// Pass 1, corr_cols_inverse<LOGH>: one block per (plane o, C = min(16384/H,
-//   64) adjacent columns k < W/2), H/16 threads per column (1024 threads at
-//   H >= 256). Forms F*conj(G) while loading, runs the inverse FFT of length
-//   H down each column, writes the complex mid plane (NB, H, W/2). Columns 0
-//   and W/2 only need the real part of their column inverse (numpy drops
+// Each side is n = 2^a * m with m odd. The kernels are instantiated per a
+// (7..13) and per ODD = (m > 1), and take m at run time: a power-of-two
+// side runs code with its length, T and block shape constant (the code K1
+// had before it took odd sides), an odd one (a <= 11, m <= 63) the
+// runtime-length code with one direct odd stage (stockham_fft.cuh). A
+// transform of length n is held by T = n/16 threads.
+//
+// Pass 1, corr_cols_inverse<a, ODD>: one block per (plane o, C adjacent columns
+//   k < W/2), C = min(1024/T, 64) with T = H/16, so C*T <= 1024 threads
+//   (C >= 2 at every H <= 8192). Forms F*conj(G) while loading, runs the
+//   inverse FFT of length H down each column, writes the complex mid plane
+//   (NB, H, W/2). Where C does not divide W/2 (H = 1536: T = 96, C = 10)
+//   the last block's columns past W/2 load zeros and store nothing. Columns
+//   0 and W/2 only need the real part of their column inverse (numpy drops
 //   the imaginary parts of the DC and Nyquist bins after it), so they share
 //   slot 0: Z[m] = Hm(X_0)[m] + i*Hm(X_W/2)[m], Hm(X)[m] = (X[m] +
-//   conj(X[-m]))/2, whose inverse is Re(Y_0) + i*Re(Y_W/2). No block is
-//   given to a ragged last column, and the mid plane's rows are 32-byte
-//   aligned.
-// Pass 2, corr_rows_c2r<LOGW, false>: one block of 256 threads per (plane
-//   o, P = 4096/W row pairs), W/16 threads per pair. Rebuilds the two
-//   Hermitian rows of length W from columns k and W-k while loading, packs
-//   them as Za + i*Zb into one complex inverse FFT (both outputs are real),
-//   scales by 1/(H*W).
-// Pass 2', corr_rows_c2r<LOGW, true>: pass 2, then the NCC epilogue of
+//   conj(X[-m]))/2, whose inverse is Re(Y_0) + i*Re(Y_W/2).
+// Pass 2, corr_rows_c2r<a, ODD, false>: one block per (plane o, P row pairs),
+//   P = max(1, 256/T) with T = W/16, P*T threads (at most 512). Where P
+//   does not divide H/2 the last block's pairs past H load zeros and store
+//   nothing. Rebuilds the two Hermitian rows of length W from columns k and
+//   W-k while loading (this needs only 16 | W), packs them as Za + i*Zb into
+//   one complex inverse FFT (both outputs are real), scales by 1/(H*W).
+// Pass 2', corr_rows_c2r<a, ODD, true>: pass 2, then the NCC epilogue of
 //   _stage2_ncc_kernel: divide by sqrt(var[f] * energy[g]) (0 where that is
 //   <= eps, decided on var * energy against a threshold the host derives
 //   from eps, so the kernel needs no IEEE square root), -inf where row >= vh
 //   or column >= vw, and for each row the (max, first column of the max)
-//   with NaN ranked highest. The caller takes the first row holding the
-//   plane's maximum: exactly the row-major first-occurrence argmax. Peak
-//   columns are int32 (the TPU kernel stores flat indices in f32, exact only
-//   below 2^24 pixels).
+//   with NaN ranked highest. The row's T threads reduce by warp shuffles
+//   when T is a power of two up to 32 or a multiple of 32, else (T = 8m or
+//   16m, W = 384, 640, ..., 8064) through shared memory, one thread a row
+//   pair. The caller takes the first row holding the plane's maximum:
+//   exactly the row-major first-occurrence argmax. Peak columns are int32
+//   (the TPU kernel stores flat indices in f32, exact only below 2^24
+//   pixels).
 // In both passes the grid is (K, groups, NF), template index fastest: the K
 // blocks that read one image's spectrum rows (pass 1) or variance rows
 // (pass 2') run together and share them through L2.
 //
-// Covered: float32 (complex64 spectra), H and W powers of two in [128, 4096].
+// Covered: float32 (complex64 spectra), H and W = 128*k, k = 1..64: the
+// shapes barc4dip_tpu/ops/pallas_fftp.supported takes. Shared memory: at
+// most C*T = 1024 threads' padded exchange slots (139,264 B) plus a twiddle
+// table of at most 8,176 entries (65,408 B) in pass 1, 204,672 B in all,
+// under the 232,448 B a block may opt into.
 //
 // What bounds it on Hopper. At 2048^2 a plane is 16.8 MB of float32 output
 // and 16.8 MB of complex mid plane (2048 x 1024 x 8 B), and each spectrum
@@ -54,8 +69,10 @@
 // butterflies there, so a length-2048 transform makes 2 exchanges through
 // padded (bank-conflict-free) shared memory; the twiddles sit in shared
 // memory, copied once per block; loads and stores are in natural order,
-// coalesced, with no bit reversal. Every kernel fits 64 registers without
-// spilling, so a pass-1 block of 1024 threads (32 warps) fills an SM. Pass 1
+// coalesced, with no bit reversal. The power-of-two instantiations fit 64
+// registers without spilling (chip_smoke.py prints every instantiation's
+// registers and spills), so a pass-1 block of 1024 threads (32 warps) fills
+// an SM. Pass 1
 // is then bound by its strided reads (32-64 B of each spectrum row a block,
 // rows 8 B out of 32-byte alignment) and pass 2 by its row traffic; the NCC
 // epilogue and the peak reduction ride pass 2 so the map is never re-read
@@ -78,34 +95,48 @@
 
 namespace {
 
-using stockham::ilog2c;
 using stockham::kPer;
 
 constexpr int kColThreads = 1024;
-constexpr int kRowThreads = 256;
-constexpr int kMinLog = 7, kMaxLog = 12;
+constexpr int kRowThreads = 256;     // pass 2 block, while T = W/16 <= 256
+constexpr int kRowMaxThreads = 512;  // T at W = 8192 (and up to 504 at W = 8064)
+constexpr int kMinLog = 7, kMaxLog = 13;
+constexpr int kMaxSide = 8192;
 
 // a * conj(b)
 __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
   return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
 }
 
-// columns per pass-1 block: kColThreads threads, at most 64 columns (W/2 >= 64)
-__host__ __device__ constexpr int cols_per_block(int logh) {
-  return kColThreads / ((1 << logh) / kPer) < 64 ? kColThreads / ((1 << logh) / kPer) : 64;
+// columns per pass-1 block, T threads each: at most 1024 threads and 64
+// columns (W/2 >= 64)
+__host__ __device__ constexpr int cols_per_block(int T) {
+  return kColThreads / T < 64 ? kColThreads / T : 64;
 }
 
-template <int LOGH>
+// row pairs per pass-2 block, T threads each
+__host__ __device__ constexpr int pairs_per_block(int T) {
+  return T >= kRowThreads ? 1 : kRowThreads / T;
+}
+
+// pass 2's block bound: 256 threads for a power-of-two W up to 4096, as
+// before the odd sides, else the 512 that W = 8192 or an odd side may need
+__host__ __device__ constexpr int rows_bound(int loga, bool odd) {
+  return odd || loga == kMaxLog ? kRowMaxThreads : kRowThreads;
+}
+
+// ODD = (m > 1), H = m << LOGA: a power-of-two H has H, T and C constant
+template <int LOGA, bool ODD>
 __global__ void __launch_bounds__(kColThreads)
 corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
-                  float2* __restrict__ mid, const float2* __restrict__ tw,
-                  int W, int K, int g_shared) {
-  constexpr int H = 1 << LOGH;
-  constexpr int T = H / kPer;
-  constexpr int C = cols_per_block(LOGH);
+                  float2* __restrict__ mid, const float2* __restrict__ tw, int ntw,
+                  int m, int W, int K, int g_shared) {
+  const int H = ODD ? m << LOGA : 1 << LOGA;
+  const int T = H / kPer;
+  const int C = cols_per_block(T);
   extern __shared__ float2 sm[];
   float2* stw = sm + C * stockham::padded(H);
-  stockham::load_twiddles<LOGH>(stw, tw);
+  stockham::load_twiddles(stw, tw, ntw);
 
   const int c = threadIdx.x % C;
   const int t = threadIdx.x / C;
@@ -115,13 +146,19 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
   const int Wh = W / 2 + 1;
   const int Wq = W / 2;
   const int k = blockIdx.y * C + c;
+  // the last block's columns may run past W/2, only when H has an odd
+  // factor (a power-of-two H gives a power of two C <= 64, which divides
+  // W/2 = 64k): such a column transforms column 0 and stores nothing, so
+  // no load is conditional
+  const bool live = !ODD || k < Wq;
+  const int kl = live ? k : 0;
   const float2* Fp = F + f * static_cast<size_t>(H) * Wh;
   const float2* Gp = G + g * static_cast<size_t>(H) * Wh;
 
   float2 v[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    const int e = (t + i * T) * Wh + k;  // a plane has < 2^31 entries
+    const int e = (t + i * T) * Wh + kl;  // a plane has < 2^31 entries
     v[i] = cmul_conj(Fp[e], Gp[e]);
   }
   if (blockIdx.y == 0) {  // slot 0: the Hermitian parts of columns 0 and W/2
@@ -143,9 +180,10 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
     if (c == 0) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
-        const int m = stockham::pad(t + i * T) * C;
-        const int r = stockham::pad((H - t - i * T) & (H - 1)) * C;
-        const float2 a = x0[m], b = x0[r], cn = xn[m], d = xn[r];
+        const int n = t + i * T;
+        const int mm = stockham::pad(n) * C;
+        const int r = stockham::pad(n == 0 ? 0 : H - n) * C;
+        const float2 a = x0[mm], b = x0[r], cn = xn[mm], d = xn[r];
         const float2 p = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
         const float2 q = make_float2(0.5f * (cn.x + d.x), 0.5f * (cn.y - d.y));
         v[i] = make_float2(p.x - q.y, p.y + q.x);
@@ -153,11 +191,13 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
     }
     __syncthreads();
   }
-  stockham::run<LOGH, 0, C>(v, sm + c, stw, t);
+  stockham::run<LOGA, ODD, 0>(v, sm + c, stw, t, m, C);
 
-  float2* Mp = mid + static_cast<size_t>(o) * H * Wq;
+  if (live) {
+    float2* Mp = mid + static_cast<size_t>(o) * H * Wq;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) Mp[(t + i * T) * Wq + k] = v[i];
+    for (int i = 0; i < kPer; ++i) Mp[(t + i * T) * Wq + k] = v[i];
+  }
 }
 
 // (v, i) beats (bv, bi): NaN ranks highest, ties go to the lower index,
@@ -170,13 +210,12 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// the best (v, i) over each run of WIDTH lanes, in its first lane
-template <int WIDTH>
-__device__ __forceinline__ void seg_best(float& v, int& i) {
-#pragma unroll
-  for (int off = WIDTH / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off, WIDTH);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off, WIDTH);
+// the best (v, i) over each run of `width` lanes (a power of two <= 32), in
+// its first lane
+__device__ __forceinline__ void seg_best(float& v, int& i, int width) {
+  for (int off = width / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, v, off, width);
+    const int oi = __shfl_down_sync(0xffffffffu, i, off, width);
     if (better(ov, oi, v, i)) {
       v = ov;
       i = oi;
@@ -184,26 +223,31 @@ __device__ __forceinline__ void seg_best(float& v, int& i) {
   }
 }
 
-template <int LOGW, bool NCC>
-__global__ void __launch_bounds__(kRowThreads)
+template <int LOGA, bool ODD, bool NCC>
+__global__ void __launch_bounds__(rows_bound(LOGA, ODD))
 corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
-              const float2* __restrict__ tw, int H, float scale,
+              const float2* __restrict__ tw, int ntw, int m, int H, float scale,
               const float* __restrict__ var, const float* __restrict__ energy,
               int K, int e_shared, float thr, int vh, int vw,
               float* __restrict__ rowmax, int* __restrict__ rowarg) {
-  constexpr int W = 1 << LOGW;
-  constexpr int T = W / kPer;
-  constexpr int P = kRowThreads / T;
-  constexpr int Wq = W / 2;
+  const int W = ODD ? m << LOGA : 1 << LOGA;
+  const int T = W / kPer;
+  const int P = pairs_per_block(T);
+  const int Wq = W / 2;
   extern __shared__ float2 sm[];
   float2* stw = sm + P * stockham::padded(W);
-  stockham::load_twiddles<LOGW>(stw, tw);
+  stockham::load_twiddles(stw, tw, ntw);
 
   const int t = threadIdx.x % T;
   const int p = threadIdx.x / T;
   const int o = blockIdx.z * K + blockIdx.x;
   const int ra = 2 * (blockIdx.y * P + p);
-  const float2* ma = mid + (static_cast<size_t>(o) * H + ra) * Wq;
+  // the last block's pairs may run past H, only when W has an odd factor (a
+  // power-of-two W gives a power of two P <= 32, which divides H/2 = 64k):
+  // such a pair transforms rows 0 and 1 and stores nothing, so no load is
+  // conditional
+  const bool live = !ODD || ra < H;
+  const float2* ma = mid + (static_cast<size_t>(o) * H + (live ? ra : 0)) * Wq;
   const float2* mb = ma + Wq;
 
   // z[n] = Xa[n] + i*Xb[n], Xa[n] = conj(Xa[W-n]) for n > W/2; the real DC
@@ -235,21 +279,23 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
     }
     v[i] = make_float2(xa.x - xb.y, xa.y + xb.x);
   }
-  stockham::run<LOGW, 0, 1>(v, sm + p * stockham::padded(W), stw, t);
+  stockham::run<LOGA, ODD, 0>(v, sm + p * stockham::padded(W), stw, t, m, 1);
 
   // thread t holds outputs n = t + i*T of rows ra (x) and ra + 1 (y)
-  float* oa = out + (static_cast<size_t>(o) * H + ra) * W;
+  float* oa = out + (static_cast<size_t>(o) * H + (live ? ra : 0)) * W;
   float* ob = oa + W;
   if constexpr (!NCC) {
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      oa[t + i * T] = v[i].x * scale;
-      ob[t + i * T] = v[i].y * scale;
+      for (int i = 0; i < kPer; ++i) {
+        oa[t + i * T] = v[i].x * scale;
+        ob[t + i * T] = v[i].y * scale;
+      }
     }
   } else {
     const int f = blockIdx.z;
     const float en = energy[e_shared ? blockIdx.x : o];
-    const float* va = var + (static_cast<size_t>(f) * H + ra) * W;
+    const float* va = var + (static_cast<size_t>(f) * H + (live ? ra : 0)) * W;
     const float* vb = va + W;
     float bva = 0.f, bvb = 0.f;
     int bia = t, bib = t;
@@ -264,8 +310,10 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
       float b = xb > thr ? v[i].y * scale * rsqrtf(xb) : 0.f;
       if (n >= vw || ra >= vh) a = -INFINITY;
       if (n >= vw || ra + 1 >= vh) b = -INFINITY;
-      oa[n] = a;
-      ob[n] = b;
+      if (live) {
+        oa[n] = a;
+        ob[n] = b;
+      }
       // n grows with i, so a tie keeps the earlier column: better() reduced
       if (i == 0 || a > bva || (isnan(a) && !isnan(bva))) {
         bva = a;
@@ -276,22 +324,23 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
         bib = n;
       }
     }
-    constexpr int kSeg = T < 32 ? T : 32;
-    seg_best<kSeg>(bva, bia);
-    seg_best<kSeg>(bvb, bib);
     const size_t r = static_cast<size_t>(o) * H + ra;
-    if constexpr (T <= 32) {
-      if (t == 0) {
+    if (T <= 32 && (T & (T - 1)) == 0) {  // a row pair inside one warp
+      seg_best(bva, bia, T);
+      seg_best(bvb, bib, T);
+      if (t == 0 && live) {
         rowmax[r] = bva;
         rowarg[r] = bia;
         rowmax[r + 1] = bvb;
         rowarg[r + 1] = bib;
       }
-    } else {  // T/32 warps per row pair: through shared memory
-      constexpr int kWarps = kRowThreads / 32;
-      constexpr int kPerPair = T / 32;
+    } else if (T % 32 == 0) {  // T/32 warps per row pair: through shared memory
+      constexpr int kWarps = kRowMaxThreads / 32;
+      const int per_pair = T / 32;
       __shared__ float sva[kWarps], svb[kWarps];
       __shared__ int sia[kWarps], sib[kWarps];
+      seg_best(bva, bia, 32);
+      seg_best(bvb, bib, 32);
       const int warp = threadIdx.x >> 5;
       if ((threadIdx.x & 31) == 0) {
         sva[warp] = bva;
@@ -301,25 +350,86 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
       }
       __syncthreads();
       if (t < 32) {  // the first warp of each row pair
-        const int w = p * kPerPair + t;
-        bva = t < kPerPair ? sva[w] : 0.f;
-        bia = t < kPerPair ? sia[w] : -1;
-        bvb = t < kPerPair ? svb[w] : 0.f;
-        bib = t < kPerPair ? sib[w] : -1;
-        seg_best<32>(bva, bia);
-        seg_best<32>(bvb, bib);
-        if (t == 0) {
+        const int w = p * per_pair + t;
+        bva = t < per_pair ? sva[w] : 0.f;
+        bia = t < per_pair ? sia[w] : -1;
+        bvb = t < per_pair ? svb[w] : 0.f;
+        bib = t < per_pair ? sib[w] : -1;
+        seg_best(bva, bia, 32);
+        seg_best(bvb, bib, 32);
+        if (t == 0 && live) {
           rowmax[r] = bva;
           rowarg[r] = bia;
           rowmax[r + 1] = bvb;
           rowarg[r + 1] = bib;
         }
       }
+    } else {  // a row pair straddles warps: the pair's first thread scans
+      // the candidates, staged in the exchange buffer (free once every
+      // thread is past the barrier)
+      __syncthreads();
+      const int nt = blockDim.x;
+      float* sva = reinterpret_cast<float*>(sm);
+      float* svb = sva + nt;
+      int* sia = reinterpret_cast<int*>(svb + nt);
+      int* sib = sia + nt;
+      sva[threadIdx.x] = bva;
+      sia[threadIdx.x] = bia;
+      svb[threadIdx.x] = bvb;
+      sib[threadIdx.x] = bib;
+      __syncthreads();
+      if (t == 0 && live) {
+        const int base = p * T;
+        for (int u = 1; u < T; ++u) {
+          if (better(sva[base + u], sia[base + u], bva, bia)) {
+            bva = sva[base + u];
+            bia = sia[base + u];
+          }
+          if (better(svb[base + u], sib[base + u], bvb, bib)) {
+            bvb = svb[base + u];
+            bib = sib[base + u];
+          }
+        }
+        rowmax[r] = bva;
+        rowarg[r] = bia;
+        rowmax[r + 1] = bvb;
+        rowarg[r + 1] = bib;
+      }
     }
   }
 }
 
-bool covered(int n) { return n >= (1 << kMinLog) && n <= (1 << kMaxLog) && (n & (n - 1)) == 0; }
+// n = 2^loga * m with m odd, for n = 128*k, k = 1..64
+bool split(int n, int* loga, int* m) {
+  if (n < (1 << kMinLog) || n > kMaxSide || n % (1 << kMinLog) != 0) return false;
+  *loga = __builtin_ctz(static_cast<unsigned>(n));
+  *m = n >> *loga;
+  return true;
+}
+
+// dynamic shared memory of a launch at side n = m << loga
+constexpr int cols_smem(int loga, int m) {
+  return ((cols_per_block((m << loga) / kPer) * stockham::padded(m << loga)) +
+          stockham::tw_count(loga, m)) * static_cast<int>(sizeof(float2));
+}
+
+constexpr int rows_smem(int loga, int m) {
+  return ((pairs_per_block((m << loga) / kPer) * stockham::padded(m << loga)) +
+          stockham::tw_count(loga, m)) * static_cast<int>(sizeof(float2));
+}
+
+// the most an instantiation asks for: m = 1, or every odd m > 1 it takes
+constexpr int max_smem(bool cols, int loga, bool odd) {
+  int best = 0;
+  for (int m = odd ? 3 : 1; (m << loga) <= kMaxSide; m += 2) {
+    const int s = cols ? cols_smem(loga, m) : rows_smem(loga, m);
+    best = s > best ? s : best;
+    if (!odd) break;
+  }
+  return best;
+}
+
+constexpr int kOptInSmem = 232448;  // what a block may opt into on sm_90
 
 cudaError_t use_device(int device) {
   int cur = -1;
@@ -328,51 +438,52 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-// cudaFuncSetAttribute once per (device, kernel): each instantiation's
-// dynamic shared memory is a constant of its template arguments
+// cudaFuncSetAttribute once per (device, kernel), to the most dynamic shared
+// memory the instantiation may launch with
 constexpr int kMaxDevices = 64;
 constexpr int kKinds = 3;  // cols, rows, rows_ncc
-std::atomic<bool> g_smem_set[kMaxDevices][kKinds][kMaxLog + 1];
+std::atomic<bool> g_smem_set[kMaxDevices][kKinds][kMaxLog + 1][2];
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int device, int kind, int logn, int smem) {
+cudaError_t allow_smem(Kernel kernel, int device, int kind, int loga, bool odd, int smem) {
   const bool cache = device >= 0 && device < kMaxDevices;
-  if (cache && g_smem_set[device][kind][logn].load(std::memory_order_acquire)) return cudaSuccess;
+  if (cache && g_smem_set[device][kind][loga][odd].load(std::memory_order_acquire)) return cudaSuccess;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && cache) g_smem_set[device][kind][logn].store(true, std::memory_order_release);
+  if (err == cudaSuccess && cache) g_smem_set[device][kind][loga][odd].store(true, std::memory_order_release);
   return err;
 }
 
-template <int LOGH>
+template <int LOGA, bool ODD>
 int launch_cols(int device, const float2* F, const float2* G, float2* mid,
-                const float2* tw, int W, int NB, int K, int g_shared,
+                const float2* tw, int ntw, int m, int W, int NB, int K, int g_shared,
                 cudaStream_t stream) {
-  constexpr int H = 1 << LOGH;
-  constexpr int C = cols_per_block(LOGH);
-  constexpr int smem =
-      (C * stockham::padded(H) + stockham::tw_count(LOGH)) * static_cast<int>(sizeof(float2));
-  cudaError_t err = allow_smem(corr_cols_inverse<LOGH>, device, 0, LOGH, smem);
+  constexpr int kMax = max_smem(true, LOGA, ODD);
+  static_assert(kMax <= kOptInSmem, "pass 1 shared memory");
+  cudaError_t err = allow_smem(corr_cols_inverse<LOGA, ODD>, device, 0, LOGA, ODD, kMax);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(K, W / 2 / C, NB / K);
-  corr_cols_inverse<LOGH><<<grid, C * (H / kPer), smem, stream>>>(F, G, mid, tw, W, K, g_shared);
+  const int T = (m << LOGA) / kPer;
+  const int C = cols_per_block(T);
+  const dim3 grid(K, (W / 2 + C - 1) / C, NB / K);
+  corr_cols_inverse<LOGA, ODD><<<grid, C * T, cols_smem(LOGA, m), stream>>>(
+      F, G, mid, tw, ntw, m, W, K, g_shared);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LOGW, bool NCC>
-int launch_rows(int device, const float2* mid, float* out, const float2* tw,
-                int H, int NB, float scale, const float* var,
+template <int LOGA, bool ODD, bool NCC>
+int launch_rows(int device, const float2* mid, float* out, const float2* tw, int ntw,
+                int m, int H, int NB, float scale, const float* var,
                 const float* energy, int K, int e_shared, float thr, int vh,
                 int vw, float* rowmax, int* rowarg, cudaStream_t stream) {
-  constexpr int W = 1 << LOGW;
-  constexpr int P = kRowThreads / (W / kPer);
-  constexpr int smem =
-      (P * stockham::padded(W) + stockham::tw_count(LOGW)) * static_cast<int>(sizeof(float2));
-  cudaError_t err = allow_smem(corr_rows_c2r<LOGW, NCC>, device, NCC ? 2 : 1, LOGW, smem);
+  constexpr int kMax = max_smem(false, LOGA, ODD);
+  static_assert(kMax <= kOptInSmem - 256, "pass 2 shared memory");
+  cudaError_t err = allow_smem(corr_rows_c2r<LOGA, ODD, NCC>, device, NCC ? 2 : 1, LOGA, ODD, kMax);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(K, H / 2 / P, NB / K);
-  corr_rows_c2r<LOGW, NCC><<<grid, kRowThreads, smem, stream>>>(
-      mid, out, tw, H, scale, var, energy, K, e_shared, thr, vh, vw, rowmax, rowarg);
+  const int T = (m << LOGA) / kPer;
+  const int P = pairs_per_block(T);
+  const dim3 grid(K, (H / 2 + P - 1) / P, NB / K);
+  corr_rows_c2r<LOGA, ODD, NCC><<<grid, P * T, rows_smem(LOGA, m), stream>>>(
+      mid, out, tw, ntw, m, H, scale, var, energy, K, e_shared, thr, vh, vw, rowmax, rowarg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,30 +492,31 @@ int rows_dispatch(int device, const void* mid, void* out, const void* tw,
                   int ntw, int H, int W, int NB, float scale, const void* var,
                   const void* energy, int K, int e_shared, float thr, int vh,
                   int vw, void* rowmax, int* rowarg, void* stream) {
-  if (!covered(H) || !covered(W) || ntw != stockham::tw_count(ilog2c(W)))
+  int la, ma, loga, m;
+  if (!split(H, &la, &ma) || !split(W, &loga, &m) || ntw != stockham::tw_count(loga, m))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* m = static_cast<const float2*>(mid);
+  const auto* mp = static_cast<const float2*>(mid);
   auto* o = static_cast<float*>(out);
   const auto* w = static_cast<const float2*>(tw);
   const auto* vr = static_cast<const float*>(var);
   const auto* en = static_cast<const float*>(energy);
   auto* rm = static_cast<float*>(rowmax);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (ilog2c(W)) {
-#define K1_ROWS(L)                                                                   \
-  case L:                                                                            \
-    return launch_rows<L, NCC>(device, m, o, w, H, NB, scale, vr, en, K, e_shared, \
-                               thr, vh, vw, rm, rowarg, s);
-    K1_ROWS(7)
-    K1_ROWS(8)
-    K1_ROWS(9)
-    K1_ROWS(10)
-    K1_ROWS(11)
-    K1_ROWS(12)
-#undef K1_ROWS
+#define K1_ROWS(L, ODD)                                                                  \
+  return launch_rows<L, ODD, NCC>(device, mp, o, w, ntw, m, H, NB, scale, vr, en, K,     \
+                                  e_shared, thr, vh, vw, rm, rowarg, s);
+  switch (loga) {
+    case 7: if (m > 1) { K1_ROWS(7, true) } K1_ROWS(7, false)
+    case 8: if (m > 1) { K1_ROWS(8, true) } K1_ROWS(8, false)
+    case 9: if (m > 1) { K1_ROWS(9, true) } K1_ROWS(9, false)
+    case 10: if (m > 1) { K1_ROWS(10, true) } K1_ROWS(10, false)
+    case 11: if (m > 1) { K1_ROWS(11, true) } K1_ROWS(11, false)
+    case 12: K1_ROWS(12, false)
+    case 13: K1_ROWS(13, false)
   }
+#undef K1_ROWS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -417,37 +529,37 @@ const char* fftp_corr_error_string(int code) {
 }
 
 // F (NF, H, W/2+1) complex64, G (K, H, W/2+1) when g_shared else
-// (NB, H, W/2+1), mid (NB, H, W/2) complex64, tw the stage twiddle table of
+// (NB, H, W/2+1), mid (NB, H, W/2) complex64, tw the twiddle table of
 // length H (ntw complex64 entries). NB = NF * K.
 int fftp_corr_cols(int device, const void* F, const void* G, void* mid,
                    const void* tw, int ntw, int H, int W, int NB, int K,
                    int g_shared, void* stream) {
-  if (!covered(H) || !covered(W) || ntw != stockham::tw_count(ilog2c(H)))
+  int loga, m, lw, mw;
+  if (!split(H, &loga, &m) || !split(W, &lw, &mw) || ntw != stockham::tw_count(loga, m))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* f = static_cast<const float2*>(F);
   const auto* g = static_cast<const float2*>(G);
-  auto* m = static_cast<float2*>(mid);
+  auto* mp = static_cast<float2*>(mid);
   const auto* w = static_cast<const float2*>(tw);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (ilog2c(H)) {
-#define K1_COLS(L) \
-  case L:          \
-    return launch_cols<L>(device, f, g, m, w, W, NB, K, g_shared, s);
-    K1_COLS(7)
-    K1_COLS(8)
-    K1_COLS(9)
-    K1_COLS(10)
-    K1_COLS(11)
-    K1_COLS(12)
-#undef K1_COLS
+#define K1_COLS(L, ODD) return launch_cols<L, ODD>(device, f, g, mp, w, ntw, m, W, NB, K, g_shared, s);
+  switch (loga) {
+    case 7: if (m > 1) { K1_COLS(7, true) } K1_COLS(7, false)
+    case 8: if (m > 1) { K1_COLS(8, true) } K1_COLS(8, false)
+    case 9: if (m > 1) { K1_COLS(9, true) } K1_COLS(9, false)
+    case 10: if (m > 1) { K1_COLS(10, true) } K1_COLS(10, false)
+    case 11: if (m > 1) { K1_COLS(11, true) } K1_COLS(11, false)
+    case 12: K1_COLS(12, false)
+    case 13: K1_COLS(13, false)
   }
+#undef K1_COLS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// mid (NB, H, W/2) complex64 -> out (NB, H, W) float32; tw the stage
-// twiddle table of length W (ntw complex64 entries).
+// mid (NB, H, W/2) complex64 -> out (NB, H, W) float32; tw the twiddle
+// table of length W (ntw complex64 entries).
 int fftp_corr_rows(int device, const void* mid, void* out, const void* tw,
                    int ntw, int H, int W, int NB, float scale, void* stream) {
   return rows_dispatch<false>(device, mid, out, tw, ntw, H, W, NB, scale,

@@ -2,29 +2,46 @@
 //
 // A register-resident Stockham FFT core for one block of threads: the
 // unnormalised inverse DFT y[n] = sum_m x[m] exp(+2*pi*i*m*n/N) of length
-// N = 2^LOGN (128..4096), natural order in and out.
+// N = 2^LOGA * m, natural order in and out, for LOGA in [7, 13] (a template
+// argument) and m odd (a runtime argument). K1 takes every N = 128*k,
+// k <= 64, so m <= 63, and m = 1 above 4096.
 //
 // Each transform is held by T = N/16 threads, 16 complex values each: thread
-// t holds v[i] = x[t + i*T]. The plan is radix 16 for every stage but the
-// last, whose radix is 2^(LOGN mod 4) when that is not 1 (2048 = 16*16*8,
-// 4096 = 16*16*16, 128 = 16*8). At stage s (Ns = 16^s, radix R, M = 16/R
+// t holds v[i] = x[t + i*T]. The plan factors 2^LOGA first: radix 16 for
+// every stage but the last power-of-two stage, whose radix is
+// 2^(LOGA mod 4) when that is not 1 (2048 = 16*16*8, 4096 = 16*16*16, 8192 =
+// 16*16*16*2, 128 = 16*8). At stage s (Ns = 16^s, radix R, M = 16/R
 // butterflies per thread) butterfly m of thread t is j = t + m*T; it takes
 // v[m + q*M] (q < R, that is x[j + q*N/R]), multiplies by the stage twiddles
 // exp(+2*pi*i*q*(j mod Ns)/(Ns*R)), runs the R-point DFT in registers
 // (radix-2 steps on register names, constant internal twiddles), and writes
 // output q to y[(j / Ns)*Ns*R + (j mod Ns) + q*Ns]. Between stages the values
 // go through shared memory, padded by one slot in 16 so that neither the
-// stride-16 writes of stage 0 nor the unit-stride reads conflict on banks;
-// the last stage's outputs stay in registers, v[i] = y[t + i*T], so a caller
-// reads its input and writes its output in natural order with no bit
-// reversal. ceil(LOGN/4) stages, so 3 at 2048, with 2 exchanges through
-// shared memory.
+// stride-16 writes of stage 0 nor the unit-stride reads conflict on banks.
+// These stages depend on N only through T, so one instantiation per LOGA
+// serves every m.
 //
-// The stage twiddles come from a table built on the host in float64 and
-// rounded once to float32 (barc4dip_tpu_torch/ops/cuda_fftp.stage_twiddles);
-// the caller copies it into shared memory once per block. For stage s >= 1
-// entry (q - 1)*Ns + k of its part holds exp(+2*pi*i*q*k/(Ns*R)), q = 1..R-1,
-// k < Ns, the parts in stage order; consecutive threads read consecutive k.
+// When m > 1 a last stage of radix m follows (Ns = 2^LOGA = N/m). Its
+// butterfly j < Ns takes x[j + q*Ns], q < m, and its output p is
+// y[j + p*Ns] = sum_q x[j + q*Ns] exp(+2*pi*i*q*(j + p*Ns)/N): the stage
+// twiddle and the m-point DFT fold into one factor exp(+2*pi*i*r/N),
+// r = q*n mod N for output n. So each thread forms its own 16 outputs as
+// direct m-term sums out of shared memory (m complex multiply-adds a point)
+// and the odd stage needs no second exchange. One code path serves every odd
+// m in 3..63; no per-radix butterflies, since the sums cost far less than
+// the memory traffic around them (csrc/fftp_corr.cu).
+//
+// The last stage's outputs stay in registers, v[i] = y[t + i*T], so a caller
+// reads its input and writes its output in natural order with no bit
+// reversal. ceil(LOGA/4) stages, plus one when m > 1, with one exchange
+// through shared memory between each pair of stages.
+//
+// The twiddles come from a table built on the host in float64 and rounded
+// once to float32 (barc4dip_tpu_torch/ops/cuda_fftp.stage_twiddles); the
+// caller copies it into shared memory once per block. For power-of-two stage
+// s >= 1 entry (q - 1)*Ns + k of its part holds exp(+2*pi*i*q*k/(Ns*R)),
+// q = 1..R-1, k < Ns, the parts in stage order; consecutive threads read
+// consecutive k. When m > 1, N entries exp(+2*pi*i*r/N), r < N, follow.
 
 #pragma once
 
@@ -34,21 +51,23 @@ namespace stockham {
 
 constexpr int kPer = 16;  // complex values per thread
 
-__host__ __device__ constexpr int stages(int logn) { return (logn + 3) / 4; }
+__host__ __device__ constexpr int stages(int loga) { return (loga + 3) / 4; }
 
-__host__ __device__ constexpr int radix(int logn, int s) {
-  return 4 * (s + 1) <= logn ? 16 : 1 << (logn - 4 * s);
+__host__ __device__ constexpr int radix(int loga, int s) {
+  return 4 * (s + 1) <= loga ? 16 : 1 << (loga - 4 * s);
 }
 
-// first entry of stage s's twiddles in the table (s >= 1)
-__host__ __device__ constexpr int tw_offset(int logn, int s) {
+// first entry of power-of-two stage s's twiddles in the table (s >= 1)
+__host__ __device__ constexpr int tw_offset(int loga, int s) {
   int off = 0;
-  for (int u = 1; u < s; ++u) off += (radix(logn, u) - 1) << (4 * u);
+  for (int u = 1; u < s; ++u) off += (radix(loga, u) - 1) << (4 * u);
   return off;
 }
 
-__host__ __device__ constexpr int tw_count(int logn) {
-  return tw_offset(logn, stages(logn));
+// table length for N = 2^loga * m: the power-of-two stages, then N entries
+// for the odd stage when m > 1
+__host__ __device__ constexpr int tw_count(int loga, int m) {
+  return tw_offset(loga, stages(loga)) + (m > 1 ? m << loga : 0);
 }
 
 // padded shared-memory slots of one transform of length n
@@ -118,50 +137,82 @@ __device__ __forceinline__ void dft(float2* a) {
   dit_levels<R, STRIDE, 1>(a);
 }
 
-// Stages S.. of the transform whose inputs thread t holds in v (v[i] =
-// x[t + i*T] of stage S's input). Slot a of the transform's exchange buffer
-// is x[pad(a) * CS]: CS = 1 for a buffer of its own, CS = C for C transforms
-// interleaved slot by slot. tw is the stage twiddle table in shared memory.
-// Every thread of the block calls this together (it holds barriers).
-template <int LOGN, int S, int CS>
-__device__ __forceinline__ void run(float2 (&v)[kPer], float2* x, const float2* tw, int t) {
-  constexpr int N = 1 << LOGN;
-  constexpr int T = N / kPer;
+// The odd stage's outputs I.. of thread t, v[I] = y[n], n = t + I*T: m
+// terms each out of the exchange buffer x, with wo[r] = exp(+2*pi*i*r/N).
+// Written as a recursion on I so that every register index is a template
+// constant whatever the compiler does with the runtime loop over q.
+template <int LOGA, int I>
+__device__ __forceinline__ void odd_outputs(float2 (&v)[kPer], const float2* x, const float2* wo,
+                                            int t, int T, int m, int cs) {
+  constexpr int NA = 1 << LOGA;
+  const int N = m << LOGA;
+  const int n = t + I * T;
+  const int j = n & (NA - 1);
+  float2 acc = x[pad(j) * cs];
+  int r = 0;
+  for (int q = 1; q < m; ++q) {
+    r += n;
+    if (r >= N) r -= N;
+    const float2 p = cmul(x[pad(j + q * NA) * cs], wo[r]);
+    acc.x += p.x;
+    acc.y += p.y;
+  }
+  v[I] = acc;
+  if constexpr (I + 1 < kPer) odd_outputs<LOGA, I + 1>(v, x, wo, t, T, m, cs);
+}
+
+// Stages S.. of the length-(m << LOGA) transform whose inputs thread t
+// holds in v (v[i] = x[t + i*T] of stage S's input, T = (m << LOGA) / 16).
+// ODD = (m > 1): a power-of-two length (ODD false, m = 1) keeps T a
+// compile-time constant and has no odd stage, so its code is that of a
+// plain 2^LOGA transform. Slot a of the transform's exchange buffer is
+// x[pad(a) * cs]: cs = 1 for a buffer of its own, cs = C for C transforms
+// interleaved slot by slot. tw is the twiddle table in shared memory. Every
+// thread of the block calls this together, with the same m (it holds
+// barriers).
+template <int LOGA, bool ODD, int S>
+__device__ __forceinline__ void run(float2 (&v)[kPer], float2* x, const float2* tw, int t,
+                                    int m, int cs) {
+  constexpr int NA = 1 << LOGA;
   constexpr int NS = 1 << (4 * S);
-  constexpr int R = radix(LOGN, S);
+  constexpr int R = radix(LOGA, S);
   constexpr int M = kPer / R;
+  const int T = ODD ? (m << LOGA) / kPer : NA / kPer;
   if constexpr (S > 0) {
-    constexpr int off = tw_offset(LOGN, S);
+    constexpr int off = tw_offset(LOGA, S);
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int k = (t + m * T) & (NS - 1);
+    for (int u = 0; u < M; ++u) {
+      const int k = (t + u * T) & (NS - 1);
 #pragma unroll
-      for (int q = 1; q < R; ++q) v[m + q * M] = cmul(v[m + q * M], tw[off + (q - 1) * NS + k]);
+      for (int q = 1; q < R; ++q) v[u + q * M] = cmul(v[u + q * M], tw[off + (q - 1) * NS + k]);
     }
   }
 #pragma unroll
-  for (int m = 0; m < M; ++m) dft<R, M>(v + m);
-  if constexpr (NS * R < N) {
+  for (int u = 0; u < M; ++u) dft<R, M>(v + u);
+  if constexpr (NS * R < NA || ODD) {  // an exchange, then the next stage
     if constexpr (S > 0) __syncthreads();  // the previous exchange is read
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const int j = t + m * T;
+    for (int u = 0; u < M; ++u) {
+      const int j = t + u * T;
       const int base = (j / NS) * NS * R + (j & (NS - 1));
 #pragma unroll
-      for (int q = 0; q < R; ++q) x[pad(base + q * NS) * CS] = v[m + q * M];
+      for (int q = 0; q < R; ++q) x[pad(base + q * NS) * cs] = v[u + q * M];
     }
     __syncthreads();
+    if constexpr (NS * R < NA) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) v[i] = x[pad(t + i * T) * CS];
-    run<LOGN, S + 1, CS>(v, x, tw, t);
+      for (int i = 0; i < kPer; ++i) v[i] = x[pad(t + i * T) * cs];
+      run<LOGA, ODD, S + 1>(v, x, tw, t, m, cs);
+    } else {  // the odd stage, radix m (Ns = NA)
+      odd_outputs<LOGA, 0>(v, x, tw + tw_offset(LOGA, stages(LOGA)), t, T, m, cs);
+    }
   }
 }
 
-// Copy the stage twiddle table into shared memory (the first exchange's
-// barrier orders it before its first use).
-template <int LOGN>
-__device__ __forceinline__ void load_twiddles(float2* dst, const float2* __restrict__ src) {
-  for (int e = threadIdx.x; e < tw_count(LOGN); e += blockDim.x) dst[e] = src[e];
+// Copy the twiddle table (ntw entries) into shared memory (the first
+// exchange's barrier orders it before its first use).
+__device__ __forceinline__ void load_twiddles(float2* dst, const float2* __restrict__ src, int ntw) {
+  for (int e = threadIdx.x; e < ntw; e += blockDim.x) dst[e] = src[e];
 }
 
 }  // namespace stockham

@@ -16,22 +16,18 @@ shared by every image or (NF, K, H, Wh) for one bank per image. Results are
 (K, H, W) for a 2-D ``F``, else (NF, K, H, W).
 
 Dispatch is decided from device, shape and dtype before any launch, as the
-TPU gate is (``use and supported(shape) and dtype == f32``), but over a
-narrower set of shapes: the Pallas kernel takes H and W that are multiples
-of 128 in [128, 8192] (``pallas_fftp.supported``), this one only the powers
-of two in [128, 4096] (:func:`supported`). A 1536, 2560 or 3072 side, and
-any 8192 side, runs Pallas on a TPU and the plain version here. The callers
-that can meet such a side are the grain and sharpness autocorrelations, the
-tracking banks, the valid NCC maps, and the signal layer's public entries
-(``signal.autocorr2d``, ``spectral_summary``, ``spectral_summary_stack``,
-``template_matching``), which take an image of any side the user hands in:
+TPU gate is (``use and supported(shape) and dtype == f32``), over the same
+shapes: H and W multiples of 128 in [128, 8192] (:func:`supported` accepts
+exactly what ``pallas_fftp.supported`` accepts):
 
 - a CPU tensor takes the plain PyTorch version;
-- a CUDA tensor of a covered shape (complex64 spectra, H and W powers of
-  two in [128, 4096]) launches the kernel; a build or launch failure
-  raises;
-- a CUDA tensor of another shape takes the plain version and is counted in
-  :data:`PLAIN_BY_SHAPE`.
+- a CUDA tensor of a covered shape with complex64 spectra launches the
+  kernel; a build or launch failure raises;
+- a CUDA tensor of another shape or dtype takes the plain version and is
+  counted in :data:`PLAIN_BY_SHAPE`. Those are calls the TPU gate refuses
+  too: the 227/228-px subtile autocorrelations, the windowed search's
+  odd-sided windows, any side that is not a multiple of 128, and spectra
+  that are not complex64.
 
 :data:`LAUNCHES` counts every kernel launch, by pass.
 """
@@ -79,8 +75,11 @@ def reset_counts() -> None:
 
 
 def supported(shape) -> bool:
-    """(H, W) the kernel covers: powers of two in [128, 4096]."""
-    return all(128 <= int(n) <= 4096 and (int(n) & (int(n) - 1)) == 0 for n in shape[-2:])
+    """(..., H, W) the kernel covers: H and W = 128*k, k = 1..64, as
+    ``pallas_fftp.supported``."""
+    if len(shape) < 2:
+        return False
+    return all(int(n) % 128 == 0 and 1 <= int(n) // 128 <= 64 for n in shape[-2:])
 
 
 def build() -> ctypes.CDLL:
@@ -103,27 +102,36 @@ def build() -> ctypes.CDLL:
 
 def radix_plan(n: int) -> list[int]:
     """Stage radices of the kernel's length-``n`` transform
-    (``csrc/stockham_fft.cuh``): 16 for every stage but the last, whose
-    radix is 2^(log2 n mod 4) when that is not 1."""
-    logn = int(n).bit_length() - 1
-    return [16] * (logn // 4) + ([1 << (logn % 4)] if logn % 4 else [])
+    (``csrc/stockham_fft.cuh``), n = 2^a * m with m odd: 16 for every
+    power-of-two stage but the last, whose radix is 2^(a mod 4) when that is
+    not 1, then m when m > 1."""
+    a = (int(n) & -int(n)).bit_length() - 1
+    m = int(n) >> a
+    return [16] * (a // 4) + ([1 << (a % 4)] if a % 4 else []) + ([m] if m > 1 else [])
 
 
 def stage_twiddles(n: int) -> np.ndarray:
-    """The kernel's stage twiddle table for length ``n``, complex128: for
-    each stage s >= 1 (Ns = 16^s inputs combined so far, radix R), entry
-    (q - 1)*Ns + k of its part is exp(+2*pi*i*q*k/(Ns*R)), q = 1..R-1."""
+    """The kernel's twiddle table for length ``n``, complex128: for each
+    power-of-two stage s >= 1 (Ns = 16^s inputs combined so far, radix R),
+    entry (q - 1)*Ns + k of its part is exp(+2*pi*i*q*k/(Ns*R)),
+    q = 1..R-1; then, when n has an odd factor m > 1, the n entries
+    exp(+2*pi*i*r/n), r < n, of the odd stage (its stage twiddle and m-point
+    DFT in one factor)."""
+    plan = radix_plan(n)
+    odd = plan[-1] if plan[-1] % 2 else 1
     parts, ns = [], 1
-    for s, r in enumerate(radix_plan(n)):
+    for s, r in enumerate(plan[: len(plan) - (odd > 1)]):
         if s:
             q = np.arange(1, r)[:, None]
             k = np.arange(ns)[None, :]
             parts.append(np.exp(2j * np.pi * (q * k) / (ns * r)).ravel())
         ns *= r
+    if odd > 1:
+        parts.append(np.exp(2j * np.pi * np.arange(n) / n))
     return np.concatenate(parts)
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=32)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """:func:`stage_twiddles`, built in float64 and rounded once to float32."""
     return torch.from_numpy(stage_twiddles(n).astype(np.complex64)).to(device)

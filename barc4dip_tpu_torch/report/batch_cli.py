@@ -7,10 +7,9 @@ HDF5 stack or a sequence of EDF/TIFF frames, out-of-core where possible,
 writing a JSON summary, an optional .npz of the full outputs and an
 optional Markdown report. Flags are those of ``barc4dip-batch``;
 ``--device`` is the one addition, the port's explicit device (default
-``cuda``, which fails without a card; ``cpu`` runs on the CPU). Two flags
-are accepted and not ported yet: ``--register`` raises before any file is
-read, and ``--mesh`` raises where more than one CUDA device is visible (on
-one device it shards nothing, as in the JAX script).
+``cuda``, which fails without a card; ``cpu`` runs on the CPU). One flag
+is accepted and not ported yet: ``--mesh`` raises where more than one CUDA
+device is visible (on one device it shards nothing, as in the JAX script).
 
 Examples
 --------
@@ -149,11 +148,6 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..models import SharpnessScanPipeline, SpeckleStackPipeline
 
-    if args.register:  # before any file is read
-        raise NotImplementedError(
-            "barc4dip-cuda-batch: --register needs preprocessing.register_stack, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 4)"
-        )
     device = cli_device(args.device)
     mesh = None  # on one device there is nothing to shard
     if args.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -190,9 +184,10 @@ def main(argv: list[str] | None = None) -> int:
             tracking_search_radius=args.search_radius, device=device,
         )
 
-    if args.flat or args.dark:
-        # calibration needs the frames in memory (the corrected stack
-        # feeds the pipeline), so streaming is bypassed
+    reg_shifts = None
+    if args.register or args.flat or args.dark:
+        # calibration / drift correction need the frames in memory (the
+        # corrected stack feeds the pipeline), so streaming is bypassed
         from ..io import read_h5, read_image
 
         stack = read_h5(inputs[0]) if single_h5 else read_image(inputs)
@@ -208,6 +203,13 @@ def main(argv: list[str] | None = None) -> int:
                 stack,
                 flats=_load(flats) if flats else None,
                 darks=_load(darks) if darks else None,
+                device=device,
+            )
+        if args.register:
+            from ..preprocessing import register_stack
+
+            stack, reg_shifts = register_stack(
+                stack, reference=args.register, frame_chunk=args.frame_chunk,
                 device=device,
             )
         out = pipe(
@@ -248,6 +250,14 @@ def main(argv: list[str] | None = None) -> int:
             )
 
     summary = _summary(out)
+    if reg_shifts is not None:
+        r = np.hypot(reg_shifts["dy"], reg_shifts["dx"])
+        summary["registration"] = {
+            "reference": reg_shifts["reference"],
+            "max_r_px": float(r.max()) if r.size else 0.0,
+            "final_dy_px": float(reg_shifts["dy"][-1]),
+            "final_dx_px": float(reg_shifts["dx"][-1]),
+        }
     text = json.dumps(summary, indent=2, default=str)
     if args.out:
         Path(args.out).write_text(text)

@@ -18,7 +18,9 @@ Phases, one line each with its wall time:
    ``spectral_summary_stack`` does, on 1, 2, 3 and 8 standardized frames:
    the sharpness path's image, chunks and tail, and on one z-scored frame
    against one zero-padded template spectrum as ``template_matching`` sends
-   it),
+   it; then at the sides off the powers of two: K1a B=1 at 1536^2,
+   ``autocorr2d``'s layout, B=4 at 3072^2 and B=1 at 8192^2 on frames made on
+   the card, K1b's 9-template bank on the coverage stack at 2048 x 2560),
    timed with
    CUDA events (median of 10 single calls) beside the library call (cuFFT's
    irfft2 of the products formed beforehand), then all three split by
@@ -35,6 +37,18 @@ Phases, one line each with its wall time:
    included, against a float64 run of the same frames on the card (rtol
    1e-4) and, where the frames' key is in ``.bench_metric_golden.json``,
    against that golden (maps in its strided-sample form);
+4a. coverage: K1 at the sides the TPU kernel takes beyond the powers of
+   two. ``speckle_stack_stats`` at Config D's settings on 8 frames of 2048 x
+   2560 uint16 (a 2048-row window of a 2560-column sCMOS sensor), spiral
+   motion, seed 1234, run twice, the second counted: one K1a a chunk (the
+   full frame, padded square to 2560^2) and two K1b at 2048 x 2560,
+   ``PLAIN_BY_SHAPE`` holding only subtile keys the TPU gate refuses too,
+   tracking within 0.05 px of the spiral, frames 0-1 within 1e-4 of a
+   float64 run on the card; ``signal.autocorr2d`` of a CUDA tensor at
+   1536^2 through K1a (against float64, ns a pixel beside 2048^2 and beside
+   the plain path's PR 8 reading), ``spectral_summary_stack`` of 4 x 3072^2
+   CUDA frames in one chunk and ``signal.autocorr2d`` at 8192^2: one K1a
+   each, no plain call;
 5. speckle-stats: ``speckle_stats`` on frame 0 (all groups, tiles), run
    twice, the second counted: K1a launches; leaves against a float64 run on
    the card (rtol 1e-4); reading the lazy map launches K1a once more and
@@ -113,9 +127,30 @@ Phases, one line each with its wall time:
    of frame 0 plus two noise draws against a complex128 evaluation (rings
    1 and up within 1e-4, a finite resolution); ``psnr``, ``ssim`` and
    ``ms_ssim`` of a blurred copy against float64. Last, ``signal.autocorr2d``
-   at a side K1 does not cover (the 1536^2 centre crop): no K1 launch,
-   ``PLAIN_BY_SHAPE`` holding that key alone for the whole phase, the result
-   against float64, and its time beside the same call at 2048^2 (K1a);
+   at a side that K1 and the TPU gate both refuse (the 1500^2 centre crop): no
+   K1 launch, ``PLAIN_BY_SHAPE`` holding that key alone for the whole phase,
+   the result against float64, and its time beside the same call at 2048^2
+   (K1a);
+11a. preprocess: Config E ``full_with_deconv_2k`` on frame 0 and a flat
+   (``flat_field_correction`` -> ``deconvolve_psf(sigma=1.5, "wiener")`` ->
+   ``speckle_stats(amplitude, grain, stats)`` -> ``logbook_report``), run
+   twice, the second counted: one K1a, its leaves within 1e-4 of the chain
+   in float64 on the card; ``deconvolve_psf`` wiener, rl and uw on frame 0
+   and on frames 0-7, from numpy and from a CUDA tensor (equal), against
+   float64 on the card; ``clahe`` on frame 0 as uint16 and as uint8 against
+   the CPU (1 code, 1e-3 of the pixels); ``correct_distortion`` on frame 0
+   and frames 0-7 against float64 (1e-6); ``register_stack`` on Config D's
+   16 frames before quantization (float32, the same spiral), ``first`` /
+   ``mean`` / ``previous``, each with ``fourier`` and ``roll``: drift within
+   0.05 px of the spiral (``mean``: the pairwise drift within 0.1 px, as
+   the JAX test holds it; ``previous``: each increment within 0.05 px and
+   frames 0-4 within 0.08 px), a CUDA tensor stack equal to the numpy one,
+   then ``speckle_stack_stats`` of the aligned stack (abs trajectory within
+   0.1 px of zero), and Config D's uint16 frames (within 0.2 px: whitened
+   phase correlation of quantized band-limited speckle reads ~0.15 px off
+   in both packages); ``barc4dip-cuda-batch --register first`` on 8 of the
+   float32 frames as EDF files, in process (its JSON's ``registration``
+   block against the spiral);
 12. data-xst: a 2048^2 reference speckle (grain 3 px) and 6 frames warped by
    a parabolic wavefront (R = 100 m, 1 um pixels, 0.5 m) plus a spiral
    shift, as raw uint16 with flats, darks and 0.1% dead pixels;
@@ -159,7 +194,9 @@ which has no one-call equivalent) and ``launches`` (the counted run of its
 path: Config D for K1, with ``launches_sharpness`` and ``launches_files``
 (the run from EDF files) beside it; K3 with ``launches_files`` too; for a
 standardized K1a row the sharpness path named in its ``path``, for the
-B = 8 and template rows the signal phase's), after a line of K1 launches by path. Then, as its last line,
+B = 8 and template rows the signal phase's, for the rows off the powers of
+two the coverage phase's path named in their ``path``), after a line of K1
+launches by path. Then, as its last line,
 ``{"ok": true, "device": {...}}`` for the one card it used. Any failed
 phase exits non-zero. Imports nothing of JAX.
 """
@@ -208,7 +245,27 @@ SCAN_T, SCAN_BEST, SCAN_SIGMA_STEP = 6, 4, 0.8
 # it does
 SUMMARY_T, SUMMARY_CHUNK, TEMPLATE_FRAME = 16, 8, 5
 EVEN_TPL, PHASE_TPL = 32, 256
-UNCOVERED_SIDE, COVERED_SIDE = 1536, 2048
+UNCOVERED_SIDE, COVERED_SIDE = 1500, 2048
+# the coverage phase: K1 at sides off the powers of two. A 2048-row window
+# of a 2560-column sCMOS sensor (PCO.edge / Andor Zyla 5.5 class) for Config
+# D's stack call; signal.autocorr2d at MID_SIDE^2; a chunk of WIDE_B frames
+# at WIDE_SIDE^2 and one frame at HUGE_SIDE^2, the largest side K1 takes
+COV_T, COV_SHAPE, COV_CHUNK = 8, (2048, 2560), 4
+MID_SIDE, WIDE_SIDE, WIDE_B, HUGE_SIDE = 1536, 3072, 4, 8192
+# PR 8's signal.autocorr2d at 1536^2 on the plain path (ns a pixel, NVIDIA
+# H100 80GB HBM3, 700.00 W), the number the kernel path is logged beside
+PLAIN_1536_NS_PER_PX = 0.4031
+# the preprocess phase: Config E's Wiener PSF, a flat as bench_configs'
+# _make_flat builds it (normal(2000, 50), seed 0), RL/UW on PRE_T frames,
+# the Brown-Conrady coefficients, register_stack's gates (px)
+PSF_SIGMA, FLAT_SEED, PRE_T = 1.5, 0, 8
+DISTORTION = dict(k1=0.05, k2=-0.01, p1=0.002, p2=-0.001)
+DISTORTION_RTOL, CLAHE_FLIP_FRAC = 1e-6, 1e-3
+REG_GATE_PX, REG_PREV_GATE_PX, REG_PREV_SPAN, REG_RESIDUAL_PX = 0.05, 0.08, 5, 0.1
+REG_MEAN_GATE_PX = 0.1  # against the blurred mean, as tests/test_registration.py holds it
+# Config D's uint16 frames: the JAX package's register_stack reads 0.149 px
+# off the spiral on them at 512^2 on the CPU, the port the same
+REG_U16_GATE_PX = 0.2
 BINNED_ATOL_REL, SUMMARY_FRAME_RTOL = 1e-6, 1e-5
 # published H100 SXM peaks at 700 W: device memory, float32 outside the
 # tensor cores
@@ -377,9 +434,12 @@ def queued_ms(torch, fn) -> float:
 def kernel_ms(torch, fn) -> dict:
     """Device time per call (ms) of each kernel ``fn`` launches, summed by
     kernel name over REPEATS calls under torch.profiler. A window that comes
-    back with no device event (seen once, on a 0.2 ms window) is taken
-    again, twice at most; after that the time of the calls queued back to
-    back (CUDA events) stands in, under a name that says so."""
+    back with no device event (seen once, on a 0.2 ms window), or with a
+    kernel recorded a number of times that is not a multiple of REPEATS
+    (late in a run the profiler kept 1 or 2 of 10 launches, and their sum
+    over REPEATS read below the bound), is taken again, twice at most; after
+    that the time of the calls queued back to back (CUDA events) stands in,
+    under a name that says so."""
     import re
 
     from torch.autograd import DeviceType
@@ -393,15 +453,18 @@ def kernel_ms(torch, fn) -> dict:
                 fn()
             torch.cuda.synchronize()
         out: dict = {}
+        counts: dict = {}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or e.is_user_annotation or not e.self_device_time_total:
                 continue
             name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:60]
             out[name] = out.get(name, 0.0) + e.self_device_time_total / REPEATS / 1e3
-        if out:
+            counts[name] = counts.get(name, 0) + e.count
+        if out and all(c % REPEATS == 0 for c in counts.values()):
             return out
-        log("  torch.profiler recorded no device time in this window: taking it again")
-    return {"queued back to back (CUDA events: the profiler recorded no device time)": queued_ms(torch, fn)}
+        log(f"  torch.profiler recorded {counts or 'no device time'} in this window of {REPEATS} calls: "
+            "taking it again")
+    return {"queued back to back (CUDA events: the profiler lost device events)": queued_ms(torch, fn)}
 
 
 def log_device_split(torch, label: str, fn) -> float:
@@ -448,44 +511,97 @@ def fft_flops(n: int) -> float:
     return 2.5 * n * np.log2(n)
 
 
+def k1a_row(torch, label: str, F, G, planes: int, s, card: str) -> dict:
+    """One K1a layout against its plain version on the same spectra (within
+    KERNEL_ATOL_REL of the plain result's max), timed by CUDA events, by
+    device time under torch.profiler and queued, beside the plain version,
+    the library call (cuFFT's irfft2 of the product formed beforehand) and
+    the bound: its kernel-table row."""
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    H, W = (int(v) for v in s)
+    got = cuda_fftp.corr_from_rfft(F, G, s=(H, W))
+    want = cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= KERNEL_ATOL_REL * scale:
+        raise AssertionError(f"K1a {label} {H}x{W}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
+    del want
+    ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
+    plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
+    prod = (F if F.dim() == 2 else F[:, None]) * G.conj()
+    library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
+    log(f"K1a corr_from_rfft {label} {H}x{W}: max_abs_err {err:.3e} "
+        f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library irfft2 {library_ms:.3f} ms; {card}")
+    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
+    log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
+    log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+    flops = planes * (6 * F.shape[-2] * F.shape[-1] + fft_flops(H * W))
+    return {"name": f"corr_from_rfft {label}" + ("" if (H, W) == (SIDE, SIDE) else f" {H}x{W}"),
+            "route": "cuda", "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
+            "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            **bound(nbytes(F, G, got), flops), "library_ms": library_ms}
+
+
+def k1b_row(torch, label: str, args, kw, card: str) -> dict:
+    """K1b on the tracker's bank layout against its plain version: finite
+    masks equal, maps within KERNEL_ATOL_REL of the plain maps' max, peaks
+    equal to the plain path's and to argmax2d of the kernel's own maps;
+    timed as :func:`k1a_row`, the library call being cuFFT's irfft2 of the
+    products formed beforehand (the NCC epilogue and the peak are not in
+    it). Its kernel-table row."""
+    from barc4dip_tpu_torch.ops import cuda_fftp
+    from barc4dip_tpu_torch.ops.phasecorr import argmax2d
+
+    H, W = kw["s"]
+    maps, iy, ix = cuda_fftp.ncc_masked_peaks(*args, **kw)
+    pmaps, piy, pix = cuda_fftp.ncc_masked_peaks_plain(*args, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(pmaps)
+    if not torch.equal(torch.isfinite(maps), fin):
+        raise AssertionError(f"K1b {label} {H}x{W}: finite masks differ")
+    err = float((maps[fin] - pmaps[fin]).abs().max())
+    scale = float(pmaps[fin].abs().max())
+    if not err <= KERNEL_ATOL_REL * scale:
+        raise AssertionError(f"K1b {label} {H}x{W}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
+    ai, aj = argmax2d(maps)
+    if not (torch.equal(iy, ai) and torch.equal(ix, aj)):
+        raise AssertionError(f"K1b {label} {H}x{W}: kernel peaks differ from argmax2d of its own maps")
+    if not (torch.equal(iy, piy) and torch.equal(ix, pix)):
+        raise AssertionError(f"K1b {label} {H}x{W}: kernel peaks differ from the plain path's")
+    del pmaps, fin
+    ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
+    plain_ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
+    prod = args[0][:, None] * args[1][None].conj()
+    library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
+    log(f"K1b ncc_masked_peaks {label} {H}x{W}: max_abs_err {err:.3e} "
+        f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"library irfft2 {library_ms:.3f} ms; {card}")
+    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
+    log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
+    log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+    planes = prod.shape[0] * prod.shape[1]
+    flops = planes * (6 * prod.shape[-2] * prod.shape[-1] + fft_flops(H * W) + 4 * H * W)
+    return {"name": f"ncc_masked_peaks {label}" + ("" if (H, W) == (SIDE, SIDE) else f" {H}x{W}"),
+            "route": "cuda", "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
+            "replaces": "barc4dip_tpu/ops/pallas_fftp.py:398",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            **bound(nbytes(*args, maps, iy, ix), flops), "library_ms": library_ms}
+
+
 def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     """K1a and K1b against their plain versions at the main path's shapes."""
     from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
-    from barc4dip_tpu_torch.ops import corrcore, cuda_fftp, ncc
-    from barc4dip_tpu_torch.ops.phasecorr import argmax2d
+    from barc4dip_tpu_torch.ops import corrcore, ncc
 
     frames = upload(stack[:max(FRAME_CHUNK, SHARP_T, SUMMARY_CHUNK)], dev)
     H, W = frames.shape[-2:]
     rows = []
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
-
-    def k1a_row(label: str, F, G, planes: int) -> None:
-        """One K1a layout against its plain version, timed, with its bound."""
-        got = cuda_fftp.corr_from_rfft(F, G, s=(H, W))
-        want = cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W))
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        if not err <= KERNEL_ATOL_REL * scale:
-            raise AssertionError(f"K1a {label}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
-        ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
-        plain_ms = time_ms(torch, lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
-        # the library call: cuFFT's irfft2 of the product formed beforehand
-        prod = (F if F.dim() == 2 else F[:, None]) * G.conj()
-        library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
-        log(f"K1a corr_from_rfft {label} {H}x{W}: max_abs_err {err:.3e} "
-            f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library irfft2 {library_ms:.3f} ms; {card}")
-        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
-        log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
-        log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
-        flops = planes * (6 * F.shape[-2] * F.shape[-1] + fft_flops(H * W))
-        rows.append({"name": f"corr_from_rfft {label}", "route": "cuda",
-                     "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
-                     "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-                     **bound(nbytes(F, G, got), flops), "library_ms": library_ms})
 
     # K1a: the autocorrelation of each frame (corrcore.autocorr2d_core): the
     # batches of mean-removed frames (one image and a chunk of the speckle
@@ -496,14 +612,15 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     sharp_sizes = sorted({1, SHARP_CHUNK, SHARP_TAIL_CHUNK, SHARP_T % SHARP_TAIL_CHUNK} - {0})
     for nf, standardize in [(n, False) for n in plain_sizes] + [(n, True) for n in sharp_sizes]:
         Fa = torch.fft.rfft2(corrcore._precondition(frames[:nf], True, standardize))
-        k1a_row(f"B={nf} standardized" if standardize else f"B={nf}", Fa, Fa[:, None], nf)
+        rows.append(k1a_row(torch, f"B={nf} standardized" if standardize else f"B={nf}", Fa, Fa[:, None], nf,
+                            (H, W), card))
 
     # K1a as template_matching sends it (ncc.ncc_valid): the spectrum of one
     # z-scored frame against one template's zero-padded spectrum, F != G
     y0, x0 = (H - s) // 2, (W - s) // 2
     prep = ncc.zncc_prepare_image(frames[TEMPLATE_FRAME], s, s, eps=1e-9)
     tpl = ncc.prep_template(frames[0, y0 : y0 + s, x0 : x0 + s][None], H, W)
-    k1a_row("template B=1", prep["F"], tpl["Ft"], 1)
+    rows.append(k1a_row(torch, "template B=1", prep["F"], tpl["Ft"], 1, (H, W), card))
 
     # K1b: the tracker's NCC bank (ncc.ncc_bank_masked_peaks), frame-0
     # templates against later frames
@@ -513,40 +630,7 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
         var_full = torch.nn.functional.pad(prep["var_sum"], (0, s - 1, 0, s - 1))
         args = (prep["F"], bank["Ft"], var_full, bank["energy"])
         kw = dict(valid_hw=(H - s + 1, W - s + 1), eps=1e-9, s=(H, W))
-        maps, iy, ix = cuda_fftp.ncc_masked_peaks(*args, **kw)
-        pmaps, piy, pix = cuda_fftp.ncc_masked_peaks_plain(*args, **kw)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(pmaps)
-        if not torch.equal(torch.isfinite(maps), fin):
-            raise AssertionError("K1b: finite masks differ")
-        err = float((maps[fin] - pmaps[fin]).abs().max())
-        scale = float(pmaps[fin].abs().max())
-        if not err <= KERNEL_ATOL_REL * scale:
-            raise AssertionError(f"K1b B={9 * nf}: max|kernel-plain| {err:.3e} > {KERNEL_ATOL_REL:g}*{scale:.3e}")
-        ai, aj = argmax2d(maps)
-        if not (torch.equal(iy, ai) and torch.equal(ix, aj)):
-            raise AssertionError("K1b: kernel peaks differ from argmax2d of its own maps")
-        if not (torch.equal(iy, piy) and torch.equal(ix, pix)):
-            raise AssertionError("K1b: kernel peaks differ from the plain path's")
-        ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
-        plain_ms = time_ms(torch, lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
-        # the library call: cuFFT's irfft2 of the 9 products a frame, formed
-        # beforehand (the NCC epilogue and the peak are not in it)
-        prod = args[0][:, None] * args[1][None].conj()
-        library_ms = time_ms(torch, lambda: torch.fft.irfft2(prod, s=(H, W)))
-        log(f"K1b ncc_masked_peaks planes={9 * nf} {H}x{W} tpl {s}px: max_abs_err {err:.3e} "
-            f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library irfft2 {library_ms:.3f} ms; {card}")
-        device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
-        log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
-        log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
-        planes = prod.shape[0] * prod.shape[1]
-        flops = planes * (6 * prod.shape[-2] * prod.shape[-1] + fft_flops(H * W) + 4 * H * W)
-        rows.append({"name": f"ncc_masked_peaks B={9 * nf}", "route": "cuda",
-                     "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
-                     "replaces": "barc4dip_tpu/ops/pallas_fftp.py:398",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-                     **bound(nbytes(*args, maps, iy, ix), flops), "library_ms": library_ms})
+        rows.append(k1b_row(torch, f"B={9 * nf}", args, kw, card))
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
     return rows
 
@@ -1430,6 +1514,385 @@ def run_signal(torch, dev, stack, s: int, card: str) -> dict:
     return res
 
 
+def device_speckle(torch, dev, n: int, h: int, w: int, seed: int):
+    """n (h, w) float32 speckle frames made on the card (|filtered complex
+    noise|^2, grain GRAIN_PX, mean MEAN_COUNTS): data for the sides no
+    host-made stack has."""
+    import math
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.complex(torch.randn((n, h, w), generator=g, device=dev),
+                          torch.randn((n, h, w), generator=g, device=dev))
+    fy = torch.fft.fftfreq(h, device=dev)[:, None]
+    fx = torch.fft.fftfreq(w, device=dev)[None, :]
+    field = torch.fft.ifft2(noise * torch.exp(-((fy**2 + fx**2) * (math.pi * GRAIN_PX) ** 2))).abs() ** 2
+    return (field / field.mean(dim=(-2, -1), keepdim=True) * MEAN_COUNTS).float()
+
+
+def make_coverage_data() -> dict:
+    """The coverage phase's stack (COV_T frames of COV_SHAPE uint16, the
+    spiral motion, seed SEED) and its tracking grid."""
+    from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
+    from barc4dip_tpu_torch.metrics.tracking_batch import _grid_geometry
+    from barc4dip_tpu_torch.utils import speckle_stack, spiral_motion
+
+    dys, dxs = spiral_motion(COV_T)
+    stack = speckle_stack(COV_T, COV_SHAPE, grain_px=GRAIN_PX, mean_counts=MEAN_COUNTS, dys=dys, dxs=dxs,
+                          seed=np.random.default_rng(SEED), dtype=np.uint16)
+    grid, _labels, roi_side, step, _g0 = tracking_grid_from_frame0(stack)
+    starts, _, s = _grid_geometry(grid)
+    return {"stack": stack, "starts": starts, "s": s, "roi_side": roi_side, "step": step}
+
+
+def check_kernels_sides(torch, dev, stack, cov: dict, card: str) -> list[dict]:
+    """K1 at sides off the powers of two, against the plain versions: K1a
+    B=1 at MID_SIDE^2 (frame 0's centre crop, ``signal.autocorr2d``'s
+    layout), B=WIDE_B at WIDE_SIDE^2 (a ``spectral_summary_stack`` chunk),
+    B=1 at HUGE_SIDE^2; K1b's 9-template bank on the coverage stack. Each
+    row names the coverage path whose counted run gives its launches."""
+    from barc4dip_tpu_torch.config import upload
+    from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
+    from barc4dip_tpu_torch.ops import corrcore, ncc
+
+    rows = []
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
+    c0 = (SIDE - MID_SIDE) // 2
+    crop = upload(stack[:1, c0 : c0 + MID_SIDE, c0 : c0 + MID_SIDE], dev)
+    F = torch.fft.rfft2(corrcore._precondition(crop, True, False))
+    rows.append({**k1a_row(torch, "B=1", F, F[:, None], 1, (MID_SIDE, MID_SIDE), card),
+                 "path": f"autocorr2d {MID_SIDE}"})
+    for nf, side, path in ((WIDE_B, WIDE_SIDE, f"spectral_summary_stack {WIDE_SIDE}"),
+                           (1, HUGE_SIDE, f"autocorr2d {HUGE_SIDE}")):
+        F = torch.fft.rfft2(corrcore._precondition(device_speckle(torch, dev, nf, side, side, SEED + side), True, False))
+        rows.append({**k1a_row(torch, f"B={nf}", F, F[:, None], nf, (side, side), card), "path": path})
+        del F
+        torch.cuda.empty_cache()
+
+    frames = upload(cov["stack"][:2], dev)
+    H, W = frames.shape[-2:]
+    s = cov["s"]
+    bank = ncc.prep_template(_extract_tiles(frames[0], cov["starts"], s), H, W)
+    prep = ncc.zncc_prepare_image(frames[1:2], s, s, eps=1e-9)
+    var_full = torch.nn.functional.pad(prep["var_sum"], (0, s - 1, 0, s - 1))
+    args = (prep["F"], bank["Ft"], var_full, bank["energy"])
+    kw = dict(valid_hw=(H - s + 1, W - s + 1), eps=1e-9, s=(H, W))
+    rows.append({**k1b_row(torch, "B=9", args, kw, card), "path": "coverage stack"})
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
+    return rows
+
+
+def _key_shape(key: str) -> tuple[int, int]:
+    """(H, W) of a ``PLAIN_BY_SHAPE`` key "kind:HxW:dtype"."""
+    h, w = key.split(":")[1].split("x")
+    return int(h), int(w)
+
+
+def refused_by_both(plain: dict) -> None:
+    """Every plain-path key names a shape the TPU gate refuses too."""
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    covered = sorted(k for k in plain if cuda_fftp.supported(_key_shape(k)) and k.endswith(":complex64"))
+    if covered:
+        raise AssertionError(f"K1 covers {covered} but they took the plain path")
+
+
+def run_coverage(torch, dev, cov: dict, card: str) -> dict:
+    """K1 at the sides the TPU kernel takes beyond the powers of two (see
+    the module docstring, phase 4a). Every call runs twice; the second is
+    counted."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch import signal
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    cst = cov["stack"]
+    T, H, W = cst.shape
+    kw = dict(metrics="all", tiles=True, frame_chunk=COV_CHUNK, verbose=False, device=dev)
+    port.speckle_stack_stats(cst, **kw)
+    cuda_fftp.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = port.speckle_stack_stats(cst, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    chunks = -(-T // COV_CHUNK)
+    log(f"coverage: speckle_stack_stats {cst.shape} {cst.dtype} (Config D settings, frame_chunk {COV_CHUNK}): "
+        f"counted run {secs:.3f} s = {T * H * W / 1e6 / secs:.2f} MP/s; K1 launches {json.dumps(launches)}; "
+        f"plain by shape {json.dumps(plain)}; {card}")
+    want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}
+    if launches != want:
+        raise AssertionError(f"coverage stack: K1 launches {launches} != {want}")
+    refused_by_both(plain)
+    if not set(plain) <= subtile_plain_keys(H, W):
+        raise AssertionError(f"coverage stack: unexpected plain-path shapes {sorted(plain)}")
+    err = spiral_error(out)
+    if not err <= TRACK_GATE_PX:
+        raise AssertionError(f"coverage stack: tracking error {err:.4f} px > {TRACK_GATE_PX} px")
+    run = metric_leaves(out, GOLDEN_K)
+    ref = metric_leaves(port.speckle_stack_stats(cst[:GOLDEN_K].astype(np.float64), **kw), GOLDEN_K)
+    worst, verr, n = compare_leaves(run, ref)
+    log(f"coverage stack: tracking max |abs - spiral| {err:.4f} px (gate {TRACK_GATE_PX}); frames 0-{GOLDEN_K - 1} "
+        f"vs a float64 run on the card: {n} leaves (the maps among them), max rel err {verr:.3e} on {worst} "
+        f"(rtol {RTOL:g})")
+    if not verr <= RTOL:
+        raise AssertionError(f"coverage stack float64 check: {worst} {verr:.3e}")
+    res = {"coverage stack": launches}
+
+    one_k1a = {"cols": 1, "rows": 1, "rows_ncc": 0}
+
+    def counted(label, fn):
+        fn()
+        cuda_fftp.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, seen = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        if got != one_k1a or seen:
+            raise AssertionError(f"{label}: K1 launches {got}, plain by shape {seen}; one K1a and no plain call wanted")
+        res[label] = got
+        return out
+
+    frame = cst[0]
+    c0 = (SIDE - MID_SIDE) // 2
+    crop = torch.from_numpy(np.ascontiguousarray(frame[c0 : c0 + MID_SIDE, c0 : c0 + MID_SIDE])).to(dev)
+    ac = counted(f"autocorr2d {MID_SIDE}", lambda: signal.autocorr2d(crop))[0]
+    a_err = leaf_rel_err(ac.cpu().numpy(), signal.autocorr2d(crop.double())[0].cpu().numpy())
+    full = torch.from_numpy(np.ascontiguousarray(frame[:, :SIDE])).to(dev)
+    m_ms = time_ms(torch, lambda: signal.autocorr2d(crop))
+    k_ms = time_ms(torch, lambda: signal.autocorr2d(full))
+    res["autocorr2d_1536_ms"], res["autocorr2d_2048_ms"] = m_ms, k_ms
+    log(f"signal.autocorr2d of a CUDA tensor, CUDA events, median of {REPEATS}: {MID_SIDE}^2 (K1a, max rel err "
+        f"{a_err:.3e} vs float64) {m_ms:.3f} ms = {m_ms / MID_SIDE**2 * 1e6:.4f} ns a pixel (the plain path read "
+        f"{PLAIN_1536_NS_PER_PX} ns a pixel, PR 8); {SIDE}^2 {k_ms:.3f} ms = {k_ms / SIDE**2 * 1e6:.4f} ns a pixel; "
+        f"{card}")
+    if not a_err <= RTOL:
+        raise AssertionError(f"autocorr2d at {MID_SIDE}^2 vs float64: {a_err:.3e}")
+
+    wide = device_speckle(torch, dev, WIDE_B, WIDE_SIDE, WIDE_SIDE, SEED + WIDE_SIDE)
+    summ = counted(f"spectral_summary_stack {WIDE_SIDE}",
+                   lambda: signal.spectral_summary_stack(wide, frame_chunk=WIDE_B))
+    w_ms = time_ms(torch, lambda: signal.spectral_summary_stack(wide, frame_chunk=WIDE_B))
+    if not (summ["radial_interpolated"].shape[0] == WIDE_B and np.isfinite(summ["radial_interpolated"]).all()):
+        raise AssertionError(f"spectral_summary_stack at {WIDE_SIDE}^2: non-finite curves")
+    del wide
+    huge = device_speckle(torch, dev, 1, HUGE_SIDE, HUGE_SIDE, SEED + HUGE_SIDE)[0]
+    hac = counted(f"autocorr2d {HUGE_SIDE}", lambda: signal.autocorr2d(huge))[0]
+    h_ms = time_ms(torch, lambda: signal.autocorr2d(huge))
+    peak = float(hac[HUGE_SIDE // 2, HUGE_SIDE // 2])
+    if not (bool(torch.isfinite(hac).all()) and peak == float(hac.max())):
+        raise AssertionError(f"autocorr2d at {HUGE_SIDE}^2: non-finite, or the zero lag is not the peak")
+    log(f"spectral_summary_stack of {WIDE_B} x {WIDE_SIDE}^2 CUDA frames at frame_chunk {WIDE_B}: {w_ms:.3f} ms; "
+        f"signal.autocorr2d at {HUGE_SIDE}^2: {h_ms:.3f} ms = {h_ms / HUGE_SIDE**2 * 1e6:.4f} ns a pixel, zero lag "
+        f"the peak; one K1a each, no plain call; {card}")
+    del huge, hac
+    torch.cuda.empty_cache()
+    return res
+
+
+def make_flat(shape) -> np.ndarray:
+    """Config E's flat, as ``bench_configs._make_flat`` builds it."""
+    return np.random.default_rng(FLAT_SEED).normal(2000, 50, size=shape).astype(np.float32)
+
+
+def _ffc64(frame, flat) -> np.ndarray:
+    """flat_field_correction(frame, flats=flat) (scale flat_median, no dark)
+    in float64 numpy."""
+    img, den = frame.astype(np.float64), flat.astype(np.float64)
+    med = np.median(den)
+    bad = den <= (1e-6 * med if med > 0 else 1e-6)
+    out = img / np.where(bad, 1.0, den) * np.median(den[~bad])
+    return np.where(bad, 0.0, out)
+
+
+def run_preprocess(torch, dev, stack, card: str) -> dict:
+    """The rest of preprocessing on the card (see the module docstring,
+    phase 11a)."""
+    import tempfile
+
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch import preprocessing as pre
+    from barc4dip_tpu_torch.io import save_edf
+    from barc4dip_tpu_torch.ops import cuda_fftp
+    from barc4dip_tpu_torch.preprocessing import filters
+    from barc4dip_tpu_torch.report import batch_cli
+    from barc4dip_tpu_torch.utils import spiral_motion
+
+    res: dict = {}
+    frame = stack[0]
+    flat = make_flat(frame.shape)
+    groups = ("amplitude", "grain", "stats")
+    psf = filters._gaussian_psf(PSF_SIGMA, PSF_SIGMA)
+
+    def timed(fn):
+        """(result, ms) of the second of two calls; K1 counts the second."""
+        fn()
+        torch.cuda.synchronize()
+        cuda_fftp.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    zero = {"cols": 0, "rows": 0, "rows_ncc": 0}
+
+    def no_k1(label):
+        """The call just timed reached no K1 (it reaches no Pallas kernel in
+        the JAX package) and no plain correlation."""
+        got, seen = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        if got != zero or seen:
+            raise AssertionError(f"{label}: K1 launches {got}, plain by shape {seen}; none wanted")
+        res["deconvolve_psf, clahe, correct_distortion, register_stack"] = got
+
+    # Config E full_with_deconv_2k: flat-field -> Wiener -> speckle_stats -> logbook_report
+    def config_e():
+        corrected = pre.flat_field_correction(frame.astype(np.float32), flats=flat, device=dev)
+        deconvolved = pre.deconvolve_psf(corrected, sigma=PSF_SIGMA, method="wiener", device=dev)
+        stats = port.speckle_stats(deconvolved, metrics=groups, verbose=False, device=dev)
+        return stats, port.logbook_report(stats)
+
+    (stats, report), e_ms = timed(config_e)
+    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    res["config E"] = launches
+    if launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
+        raise AssertionError(f"Config E launched K1 {launches}: one K1a wanted")
+    refused_by_both(plain)
+    dec64 = filters._deconvolve(torch.from_numpy(_ffc64(frame, flat))[None].to(dev), psf, "wiener", True,
+                                0.01, 50, None)[0]
+    ref = port.speckle_stats(dec64, metrics=groups, verbose=False)
+    worst, err, n = compare_leaves(metric_leaves(stats), metric_leaves(ref))
+    log(f"Config E full_with_deconv_2k (flat-field, Wiener sigma {PSF_SIGMA}, speckle_stats {groups}, "
+        f"logbook_report) on frame 0 {frame.shape} {frame.dtype}: {e_ms:.2f} ms (counted run); K1 launches "
+        f"{json.dumps(launches)}; plain by shape {json.dumps(plain)}; vs the chain in float64 on the card: {n} "
+        f"leaves, max rel err {err:.3e} on {worst} (rtol {RTOL:g}); report {len(report.splitlines())} lines; {card}")
+    if not (err <= RTOL and "#" in report):
+        raise AssertionError(f"Config E float64 check: {worst} {err:.3e}")
+    res["config_e_ms"] = e_ms
+
+    # deconvolve_psf rl and uw, one frame and PRE_T frames, numpy and tensor in, against float64
+    parts = []
+    for method in ("wiener", "rl", "uw"):
+        for label, src in (("frame", frame), (f"{PRE_T} frames", stack[:PRE_T])):
+            kw = dict(sigma=PSF_SIGMA, method=method, device=dev)
+            got, ms = timed(lambda: pre.deconvolve_psf(src, **kw))
+            no_k1(f"deconvolve_psf {method}")
+            tensor, t_ms = timed(lambda: pre.deconvolve_psf(torch.from_numpy(src).to(dev), **kw))
+            no_k1(f"deconvolve_psf {method}")
+            src64 = torch.from_numpy(src.astype(np.float64)).to(dev)
+            want = filters._deconvolve(src64 if src.ndim == 3 else src64[None], psf, method, True,
+                                       0.01 if method == "wiener" else 0.0, 50, None)
+            derr = leaf_rel_err(got, want.cpu().numpy().reshape(got.shape))
+            same = isinstance(tensor, torch.Tensor) and np.array_equal(tensor.cpu().numpy(), got)
+            parts.append(f"{method} {label}: numpy {ms:.2f} ms, tensor {t_ms:.2f} ms, equal {same}, "
+                         f"max rel err {derr:.3e}")
+            res[f"deconvolve_{method}_{label.split()[0]}_ms"] = ms
+            if not (derr <= RTOL and same and got.dtype == np.float32):
+                raise AssertionError(f"deconvolve_psf {method} {label}: rel err {derr:.3e}, tensor equal {same}")
+    log(f"deconvolve_psf sigma {PSF_SIGMA} (padded side {frame.shape[0] + 2 * (psf.shape[0] // 2)}), vs float64 "
+        f"on the card relative to its max (rtol {RTOL:g}): " + "; ".join(parts) + f"; {card}")
+
+    # clahe on uint16 and uint8, against the same call on the CPU
+    for label, img in (("uint16", frame), ("uint8", (frame // 257).astype(np.uint8))):
+        got, ms = timed(lambda: pre.clahe(img, device=dev))
+        no_k1("clahe")
+        cpu = pre.clahe(img, device="cpu")
+        d = np.abs(got.astype(np.int64) - cpu.astype(np.int64))
+        frac = float((d > 0).mean())
+        log(f"clahe {img.shape} {label} (8x8 tiles, clip 2): {ms:.2f} ms; vs the CPU: max {int(d.max())} code, "
+            f"{frac:.2e} of the pixels differ (gates 1 code, {CLAHE_FLIP_FRAC:g}); {card}")
+        res[f"clahe_{label}_ms"] = ms
+        if not (got.dtype == img.dtype and d.max() <= 1 and frac <= CLAHE_FLIP_FRAC):
+            raise AssertionError(f"clahe {label}: max {d.max()} codes, {frac:.2e} differ")
+
+    # correct_distortion, one frame and PRE_T frames, against float64
+    for label, src in (("frame", frame), (f"{PRE_T} frames", stack[:PRE_T])):
+        got, ms = timed(lambda: pre.correct_distortion(src, **DISTORTION, device=dev))
+        no_k1("correct_distortion")
+        want = pre.correct_distortion(src.astype(np.float64), **DISTORTION, device=dev)
+        derr = leaf_rel_err(got, want)
+        log(f"correct_distortion {src.shape} {src.dtype} {DISTORTION}: {ms:.2f} ms, float32 out, max rel err "
+            f"{derr:.3e} vs float64 (gate {DISTORTION_RTOL:g}); {card}")
+        res[f"distortion_{label.split()[0]}_ms"] = ms
+        if not (got.dtype == np.float32 and derr <= DISTORTION_RTOL):
+            raise AssertionError(f"correct_distortion {label}: {derr:.3e}")
+
+    # register_stack on Config D's spiral: the frames before quantization
+    # (float32, the same pattern and motion), then Config D's uint16 frames
+    from barc4dip_tpu_torch.utils import speckle_stack
+
+    T = stack.shape[0]
+    truth = np.stack(spiral_motion(T), axis=1)
+    reg = speckle_stack(T, stack.shape[1:], grain_px=GRAIN_PX, mean_counts=MEAN_COUNTS, dys=truth[:, 0],
+                        dxs=truth[:, 1], seed=np.random.default_rng(SEED), dtype=np.float32)
+    first = None
+    for reference in ("first", "mean", "previous"):
+        for mode in ("fourier", "roll"):
+            (aligned, shifts), ms = timed(lambda: pre.register_stack(
+                reg, reference=reference, shift_mode=mode, frame_chunk=PRE_T, device=dev))
+            no_k1("register_stack")
+            d = np.stack([shifts["dy"], shifts["dx"]], axis=1)
+            if reference == "previous":  # each increment is one measurement; their errors add
+                errs = {"increments": (np.diff(d, axis=0), np.diff(truth, axis=0), REG_GATE_PX),
+                        f"frames 0-{REG_PREV_SPAN - 1}": (d[:REG_PREV_SPAN], truth[:REG_PREV_SPAN], REG_PREV_GATE_PX)}
+            elif reference == "mean":
+                errs = {"pairwise": (d - d[0], truth - truth[0], REG_MEAN_GATE_PX)}
+            else:
+                errs = {"drift": (d, truth, REG_GATE_PX)}
+            errs = {k: (float(np.hypot(*(a - b).T).max()), g) for k, (a, b, g) in errs.items()}
+            cum = float(np.hypot(*(d - truth).T).max())
+            log(f"register_stack {reg.shape} float32 reference={reference!r} shift_mode={mode!r}: {ms:.2f} ms = "
+                f"{ms / T:.2f} ms a frame; vs the spiral: "
+                + ", ".join(f"{k} within {e:.4f} px (gate {g})" for k, (e, g) in errs.items())
+                + (f", all {T} frames {cum:.4f} px" if reference == "previous" else "") + f"; {card}")
+            res[f"register_{reference}_{mode}_ms"] = ms
+            if not (all(e <= g for e, g in errs.values()) and aligned.shape == reg.shape
+                    and aligned.dtype == np.float32):
+                raise AssertionError(f"register_stack {reference}/{mode}: {errs}")
+            if (reference, mode) == ("first", "fourier"):
+                first = (aligned, shifts)
+    t_aligned, t_shifts = pre.register_stack(torch.from_numpy(reg).to(dev), frame_chunk=PRE_T)
+    if not (np.array_equal(t_shifts["dy"], first[1]["dy"]) and np.array_equal(t_aligned.cpu().numpy(), first[0])):
+        raise AssertionError("register_stack: a CUDA tensor stack differs from the numpy stack")
+    del t_aligned
+    chain = port.speckle_stack_stats(np.ascontiguousarray(first[0]), metrics=("grain",), tiles=False,
+                                     frame_chunk=FRAME_CHUNK, verbose=False, device=dev)
+    resid = float(np.nanmax(np.hypot(chain["temporal"]["abs"]["dy"], chain["temporal"]["abs"]["dx"])))
+    (_, u16), u_ms = timed(lambda: pre.register_stack(stack, frame_chunk=PRE_T, device=dev))
+    u_err = float(np.hypot(u16["dy"] - truth[:, 0], u16["dx"] - truth[:, 1]).max())
+    log(f"speckle_stack_stats of the aligned stack (first, fourier): abs trajectory max |r| {resid:.4f} px "
+        f"(gate {REG_RESIDUAL_PX}); a CUDA tensor stack registers to the same shifts and frames; Config D's "
+        f"uint16 frames (first, fourier): {u_ms:.2f} ms, drift within {u_err:.4f} px of the spiral (gate "
+        f"{REG_U16_GATE_PX}: whitened phase correlation of quantized band-limited speckle, as in the JAX "
+        f"package); {card}")
+    if not (resid <= REG_RESIDUAL_PX and u_err <= REG_U16_GATE_PX):
+        raise AssertionError(f"aligned stack: residual drift {resid:.4f} px; uint16 drift {u_err:.4f} px")
+
+    # barc4dip-cuda-batch --register first on PRE_T EDF files, in process
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for t in range(PRE_T):
+            paths.append(str(Path(tmp) / f"scan_{t:03d}.edf"))
+            save_edf(reg[t], paths[-1])
+        out_json = Path(tmp) / "summary.json"
+        cuda_fftp.reset_counts()
+        t0 = time.perf_counter()
+        rc = batch_cli.main([*paths, "--register", "first", "--frame-chunk", str(FRAME_CHUNK),
+                             "--out", str(out_json), "--device", str(dev)])
+        b_s = time.perf_counter() - t0
+        res["barc4dip-cuda-batch --register"] = dict(cuda_fftp.LAUNCHES)
+        summary = json.loads(out_json.read_text()) if rc == 0 else {}
+    reg = summary.get("registration", {})
+    berr = float(np.hypot(reg.get("final_dy_px", np.inf) - truth[PRE_T - 1, 0],
+                          reg.get("final_dx_px", np.inf) - truth[PRE_T - 1, 1]))
+    log(f"barc4dip-cuda-batch --register first on {PRE_T} EDF files (in process): exit {rc} in {b_s:.2f} s; "
+        f"registration {json.dumps(reg)} (final shift within {berr:.4f} px of the spiral, gate {REG_GATE_PX}); "
+        f"tracking max_r_px after it {summary.get('tracking', {}).get('max_r_px')}; {card}")
+    if not (rc == 0 and reg.get("reference") == "first" and berr <= REG_GATE_PX
+            and summary["tracking"]["max_r_px"] <= REG_RESIDUAL_PX):
+        raise AssertionError(f"batch --register: rc {rc}, registration {reg}")
+    res["batch_register_s"] = b_s
+    return res
+
+
+
 # -- the XST slice: flat-field with bad-pixel repair, dense tracking ---------
 
 def parabola_displacement(y, x, side: int):
@@ -2110,12 +2573,20 @@ def main() -> int:
         grid, _labels, roi_side, step, _g0 = tracking_grid_from_frame0(stack)
         starts, _, s = _grid_geometry(grid)
         log(f"stack {stack.shape} {stack.dtype}; tracking ROI {roi_side} px, step {step} px")
+        cov = make_coverage_data()
+        log(f"coverage stack {cov['stack'].shape} {cov['stack'].dtype}; tracking ROI {cov['roi_side']} px, "
+            f"step {cov['step']} px")
 
     with Phase("kernels"):
         rows = check_kernels(torch, dev, stack, starts, s, card)
+        rows += check_kernels_sides(torch, dev, stack, cov, card)
 
     with Phase("slice"):
         res = run_slice(torch, dev, stack, card)
+
+    with Phase("coverage"):
+        coverage = run_coverage(torch, dev, cov, card)
+        del cov
 
     with Phase("values"):
         check_values(dev, stack, res["out"])
@@ -2140,12 +2611,17 @@ def main() -> int:
 
     with Phase("signal"):
         sig = run_signal(torch, dev, stack, s, card)
+
+    with Phase("preprocess"):
+        prep = run_preprocess(torch, dev, stack, card)
     by_path = {"slice": res["launches"], "slice map reads": res["map_launches"],
                "speckle_stats": single["launches"], "speckle_stats map read": single["map_launches"],
                "resident": resident["launches"], **options, "full_step_fn": full_step["launches"],
                **{k: v for k, v in sharp.items() if isinstance(v, dict)},
                **{k: v for k, v in files.items() if isinstance(v, dict)},
-               **{k: v for k, v in sig.items() if isinstance(v, dict)}}
+               **{k: v for k, v in sig.items() if isinstance(v, dict)},
+               **{k: v for k, v in coverage.items() if isinstance(v, dict)},
+               **{k: v for k, v in prep.items() if isinstance(v, dict)}}
     log(f"K1 launches by path (counted runs): {json.dumps(by_path)}")
 
     with Phase("data-xst"):
@@ -2177,6 +2653,9 @@ def main() -> int:
         elif row["name"].startswith("ncc_sums"):
             row["launches"] = xst["launches"]["ncc_sums"]
             row["launches_files"] = files_xst["launches"]["ncc_sums"]
+        elif row.get("path") in coverage:  # a side of the coverage phase only
+            key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
+            row["launches"] = coverage[row["path"]][key]
         else:
             key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
             row["launches"] = res["launches"][key]

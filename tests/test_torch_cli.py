@@ -11,7 +11,8 @@ device rule they inherit.
 - ``barc4dip-cuda-batch``: the JSON summary leaf by leaf (rtol 1e-6 for
   float64 stacks; the calibrated run computes in float32 and is held at
   1e-4), the ``.npz`` keys, the report, exit code 2 for missing inputs,
-  ``--register`` and ``--mesh`` as the port specifies them.
+  ``--register`` against the JAX script, ``--mesh`` as the port specifies
+  it.
 - The device rule: with no card, ``device=None`` raises everywhere and
   ``device="cpu"`` / ``--device cpu`` runs."""
 import json
@@ -326,15 +327,43 @@ def test_batch_cli_missing_inputs_exit_2(tmp_path, capsys, monkeypatch, argv, wh
 
 
 def test_batch_cli_register_and_mesh_are_not_ported(tmp_path, monkeypatch):
-    """``--register`` raises before any file is looked at (a missing input
-    would otherwise exit 2); ``--mesh`` raises only where several CUDA
-    devices are visible."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        batch_cli.main(["missing.h5", "--register", "first", *CPU])
+    """``--register`` is ported: a missing input exits 2 like any other run
+    (its drift removal is ``test_batch_cli_register_removes_drift``).
+    ``--mesh`` raises only where several CUDA devices are visible."""
+    assert batch_cli.main(["missing.h5", "--register", "first", *CPU]) == 2
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         batch_cli.main(["missing.h5", "--mesh", "--device", "cuda"])
     assert batch_cli.main(["missing.h5", "--mesh", *CPU]) == 2  # the CPU is one device
+
+
+def test_batch_cli_register_removes_drift(tmp_path):
+    """The port of tests/test_report_cli.py's case: ``--register`` aligns a
+    drifting stack before analysis, the summary carries the measured shifts
+    and the residual tracking drops to ~0; against the JAX script, the
+    ``registration`` block agrees within 1e-4 px."""
+    rng = np.random.default_rng(45)
+    base = make_speckle(rng, shape=(160, 160), grain_px=6.0).astype(np.float32)
+    stack = np.stack([np.roll(base, (2 * t, -3 * t), axis=(0, 1)) for t in range(4)])
+    jio.save_h5(stack, tmp_path / "run.h5")
+
+    outs = {}
+    for tag, extra in (("raw", []), ("reg", ["--register", "first"]), ("jax", ["--register", "first"])):
+        out_json = tmp_path / f"{tag}.json"
+        argv = [str(tmp_path / "run.h5"), "--metrics", "amplitude,stats", "--no-tiles",
+                "--frame-chunk", "2", "--out", str(out_json), *extra]
+        assert (j_batch(argv) if tag == "jax" else batch_cli.main([*argv, *CPU])) == 0
+        outs[tag] = json.loads(out_json.read_text())
+
+    assert outs["raw"]["tracking"]["max_r_px"] > 5.0
+    reg = outs["reg"]["registration"]
+    assert reg["reference"] == "first"
+    np.testing.assert_allclose(reg["final_dy_px"], 6.0, atol=0.05)
+    np.testing.assert_allclose(reg["final_dx_px"], -9.0, atol=0.05)
+    assert outs["reg"]["tracking"]["max_r_px"] < 0.1
+    assert "registration" not in outs["raw"]
+    for k, v in outs["jax"]["registration"].items():
+        assert reg[k] == v if isinstance(v, str) else abs(reg[k] - v) <= 1e-4, k
 
 
 # -- the device rule ------------------------------------------------------------------
@@ -396,6 +425,14 @@ _RULE_CASES = {
     "speckles_cli": lambda st, p, dev: cli.main(["-s", p[0], "--no_tiles", *(["--device", "cpu"] if dev else [])]),
     "batch_cli": lambda st, p, dev: batch_cli.main(
         [*p, "--no-tiles", "--metrics", "amplitude", *(["--device", "cpu"] if dev else [])]),
+    "batch_cli_register": lambda st, p, dev: batch_cli.main(
+        [*p, "--no-tiles", "--metrics", "amplitude", "--register", "previous",
+         *(["--device", "cpu"] if dev else [])]),
+    "deconvolve_psf": lambda st, p, dev: tdip.preprocessing.deconvolve_psf(st, sigma=1.0, **dev),
+    "clahe": lambda st, p, dev: tdip.preprocessing.clahe(st[0], tile_grid_size=(2, 2), **dev),
+    "correct_distortion": lambda st, p, dev: tdip.preprocessing.correct_distortion(st, k1=0.01, **dev),
+    "shift_stack": lambda st, p, dev: tdip.preprocessing.shift_stack(st, 1.5, -0.5, **dev),
+    "register_stack": lambda st, p, dev: tdip.preprocessing.register_stack(st, **dev),
 }
 
 

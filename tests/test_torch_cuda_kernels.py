@@ -32,7 +32,7 @@ def _frames(dev, n, side):
 
 @pytest.mark.parametrize(
     "h, w, nf", [(128, 128, 1), (256, 256, 3), (2048, 2048, 1), (4096, 4096, 1),
-                 (256, 1024, 2), (1024, 128, 1)],
+                 (256, 1024, 2), (1024, 128, 1), (1536, 1536, 1), (2048, 2560, 2), (3072, 3072, 4)],
 )
 def test_corr_from_rfft_matches_plain(dev, h, w, nf):
     a = _frames(dev, nf, max(h, w))[:, :h, :w]
@@ -89,7 +89,7 @@ def test_ncc_masked_peaks_matches_plain(dev, side, nf, shared):
     assert torch.equal(iy, piy) and torch.equal(ix, pix)
 
 
-# every power of two from 128 to 4096 on each axis at least once
+# every power of two from 128 to 4096 on each axis at least once (8192: MIXED_SHAPES)
 RADIX_SHAPES = [(128, 4096), (4096, 128), (2048, 2048), (256, 1024), (1024, 256), (512, 512),
                 (128, 128)]
 
@@ -177,6 +177,46 @@ def test_ncc_random_spectra_vs_numpy(dev, h, w, shared):
     nf = 1 if h * w >= 2048 * 2048 else 2
     F, G, var, en = _ncc_inputs(h, w, nf, 3, shared, seed=3 * h + w)
     _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
+
+
+# a side of each class of the 128*k gate: odd factors 3, 5, 7, 11 (the
+# generic odd stage of csrc/stockham_fft.cuh) and 63, the power-of-two tail
+# at 8192, ragged pass-1 column groups (1536: 10 columns a block) and pass-2
+# row-pair groups, and NCC row pairs that straddle warps (W = 640, 896)
+MIXED_SHAPES = [(384, 640), (1536, 1536), (2048, 2560), (3072, 3072), (1408, 896), (8064, 128),
+                (128, 8192), (8192, 8192)]
+
+
+def _mixed_batch(h, w):
+    return (1, 1) if h * w >= 3072 * 3072 else (2, 2)
+
+
+@pytest.mark.parametrize("h, w", MIXED_SHAPES)
+def test_corr_mixed_radix_vs_numpy(dev, h, w):
+    nf, k = _mixed_batch(h, w)
+    F, G = _random_spectra(h, w, nf, k, True, seed=h + 3 * w)
+    cuda_fftp.reset_counts()
+    got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    want = _corr_ref(F, G, h, w)
+    got = got.cpu().numpy()
+    assert got.shape == want.shape == (nf, k, h, w)
+    assert np.abs(got - want).max() <= ATOL_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("h, w", MIXED_SHAPES)
+def test_ncc_mixed_radix_vs_numpy(dev, h, w):
+    """Masks, zeros where the denominator is <= eps, and (with two images)
+    NaN in one image's spectrum ranked highest."""
+    nf, k = _mixed_batch(h, w)
+    F, G, var, en = _ncc_inputs(h, w, nf, k + 1, nf == 1, seed=7 * h + w)
+    if nf > 1:
+        F[1, 3, 5] = np.nan
+    cuda_fftp.reset_counts()
+    maps = _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
+    assert not cuda_fftp.PLAIN_BY_SHAPE
+    if nf > 1:
+        assert np.isnan(maps[1]).any() and not np.isnan(maps[0]).any()
 
 
 @pytest.mark.parametrize("h, w", [(256, 512), (2048, 2048)])
@@ -325,12 +365,14 @@ def test_ncc_sums_uncovered_geometry_is_counted(dev):
 @pytest.mark.parametrize("side, launches, plain", [
     (2048, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
     (512, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
-    (1536, {"cols": 0, "rows": 0, "rows_ncc": 0}, {"corr:1536x1536:complex64": 1}),
+    (1536, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
+    (1500, {"cols": 0, "rows": 0, "rows_ncc": 0}, {"corr:1500x1500:complex64": 1}),
 ])
 def test_sharpness_autocorrelation_launches_k1a(dev, side, launches, plain):
     """The ``autocorrelation`` group of a CUDA frame runs its one
     standardized autocorrelation through K1a where the kernel covers the
-    side, and through the plain version, counted, where it does not; the
+    side (every 128*k), and through the plain version, counted, where the
+    TPU gate refuses it too (1500); the
     widths agree with the plain version's at rtol 1e-5 (float32 round-off
     of a 1/e crossing)."""
     from barc4dip_tpu_torch.metrics import estimators, sharpness_stats

@@ -129,10 +129,22 @@ def test_bank_layouts_agree(rng):
 @pytest.mark.parametrize(
     "shape, covered",
     [((128, 128), True), ((2048, 2048), True), ((4096, 256), True), ((64, 64), False),
-     ((227, 227), False), ((8192, 8192), False), ((2048, 1024 + 512), False)],
+     ((227, 227), False), ((8192, 8192), True), ((2048, 1024 + 512), True)],
 )
 def test_supported_shapes(shape, covered):
     assert cuda_fftp.supported(shape) is covered
+
+
+SIDES = [64, 127, 227, 228] + [128 * k for k in range(1, 66)]
+
+
+def test_supported_equals_the_tpu_gate():
+    """Every side and pair of sides of the sweep, square and not, and the
+    batched and too-short shapes: the port's gate is the TPU kernel's."""
+    shapes = [(n, n) for n in SIDES] + [(a, b) for a in SIDES for b in SIDES[::7]]
+    shapes += [(3, 1536, 2560), (2, 8192, 8320), (4096,), ()]
+    for shape in shapes:
+        assert cuda_fftp.supported(shape) is pallas_fftp.supported(shape), shape
 
 
 def test_cpu_tensors_never_touch_the_kernel(rng):
@@ -174,9 +186,11 @@ def _stages(v, n):
     t = np.arange(T)
     slots = t[:, None] + np.arange(16)[None, :] * T
     tw = cuda_fftp.stage_twiddles(n)
+    plan = cuda_fftp.radix_plan(n)
+    odd = plan[-1] if plan[-1] % 2 else 1
     ns, off = 1, 0
     v = v.copy()
-    for s, r in enumerate(cuda_fftp.radix_plan(n)):
+    for s, r in enumerate(plan[: len(plan) - (odd > 1)]):
         M = 16 // r
         for m in range(M):
             if s:
@@ -196,6 +210,14 @@ def _stages(v, n):
                     y[..., base + q * ns] = v[..., m + q * M]
             v = y[..., slots]
         ns *= r
+    if odd > 1:  # the odd stage: direct m-term sums out of the exchange
+        y = _unload(v, n)  # the exchange holds the power-of-two stages' output
+        n_out = slots  # output index of v[t, i]
+        j = n_out % ns
+        v = y[..., j].copy()
+        for q in range(1, odd):
+            v += y[..., j + q * ns] * tw[off + (q * n_out) % n]
+        off += n
     assert off == tw.size
     return v
 
@@ -232,14 +254,19 @@ def _kernel_irfft2(X, H, W):
     return out
 
 
-# stockham::tw_count of the CUDA source, which refuses a table of another length
-TW_COUNT = {128: 112, 256: 240, 512: 496, 1024: 1008, 2048: 2032, 4096: 4080}
+def tw_count(n):
+    """stockham::tw_count of the CUDA source, which refuses a table of
+    another length: the power-of-two stages' parts, then n entries for an
+    odd factor."""
+    a = (n & -n).bit_length() - 1
+    radices = [16 if 4 * (s + 1) <= a else 1 << (a - 4 * s) for s in range((a + 3) // 4)]
+    return sum((r - 1) << (4 * s) for s, r in enumerate(radices) if s) + (n if n >> a > 1 else 0)
 
 
-@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("n", [128 * k for k in range(1, 65)])
 def test_radix_plan_matches_ifft(rng, n):
     assert np.prod(cuda_fftp.radix_plan(n)) == n
-    assert cuda_fftp.stage_twiddles(n).shape == (TW_COUNT[n],)
+    assert cuda_fftp.stage_twiddles(n).shape == (tw_count(n),)
     x = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
     T = n // 16
     got = _unload(_stages(x[:, np.arange(T)[:, None] + np.arange(16)[None, :] * T], n), n)
@@ -247,8 +274,15 @@ def test_radix_plan_matches_ifft(rng, n):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
+def test_tw_count_of_the_power_of_two_sides():
+    assert {n: tw_count(n) for n in (128, 256, 512, 1024, 2048, 4096, 8192)} == {
+        128: 112, 256: 240, 512: 496, 1024: 1008, 2048: 2032, 4096: 4080, 8192: 8176}
+    assert tw_count(1536) == 496 + 1536 and tw_count(8064) == 112 + 8064
+
+
 @pytest.mark.parametrize("h, w", [(128, 128), (256, 512), (512, 256), (128, 4096), (4096, 128),
-                                  (1024, 2048)])
+                                  (1024, 2048), (384, 640), (1536, 2560), (8192, 128),
+                                  (128, 8192), (8064, 896)])
 def test_kernel_passes_match_numpy_irfft2(rng, h, w):
     """Random complex half spectra, not Hermitian where rfft2 would make
     them so: numpy drops the imaginary parts of the DC and Nyquist bins

@@ -3,7 +3,8 @@
 tiny stack at the defaults, one lazy map read, a tensor stack,
 ``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
 a focus scan, a report, an EDF written and read back, both console scripts,
-the pipelines' ``run_files``, the signal layer and the metric extensions)
+the pipelines' ``run_files``, the signal layer and the metric extensions,
+the rest of preprocessing)
 pulls in neither jax nor the JAX package,
 and launches no kernel; its ``io`` imports with ``h5py`` and Pillow hidden.
 ``chip_smoke.py`` needs a
@@ -26,6 +27,7 @@ from barc4dip_tpu_torch.geometry import crop, masks, roi
 from barc4dip_tpu_torch.maths import radial, stats
 from barc4dip_tpu_torch.metrics import frc, maps, perceptual
 from barc4dip_tpu_torch.ops import corrcore, fftcore, symmetry, upsampled_dft
+from barc4dip_tpu_torch.preprocessing import distortion, enhancement, filters, registration
 from barc4dip_tpu_torch.signal import corr, fft, summary, tracking
 from barc4dip_tpu_torch.io import edf, h5, native, rw, tiff, uti_EdfFile
 from barc4dip_tpu_torch.report import batch_cli, cli
@@ -94,6 +96,14 @@ assert np.isfinite(metrics.fourier_ring_correlation(stack[0], stack[1], device="
 assert 0.0 < perceptual.ssim(stack[0], stack[1], device="cpu") < 1.0
 assert maths.width_at_fraction(summ["radial_binned"], device="cpu")[0] > 0
 assert geometry.pad_to_square(torch.zeros(3, 5)).shape == (5, 5)
+dec = preprocessing.deconvolve_psf(stack, sigma=1.0, method="rl", num_iter=3, device="cpu")
+assert dec.shape == stack.shape and np.isfinite(dec).all()
+assert preprocessing.deconvolve_psf(stack[0], sigma=1.0, method="uw", device="cpu").dtype == np.float32
+assert preprocessing.clahe(stack[0], device="cpu").dtype == np.uint16
+assert preprocessing.correct_distortion(stack, k1=0.01, device="cpu").shape == stack.shape
+aligned, shifts = preprocessing.register_stack(stack, reference="previous", device="cpu")
+assert aligned.shape == stack.shape and shifts["dy"][0] == 0.0
+assert preprocessing.shift_stack(stack, 1.0, 2.0, shift_mode="roll", device="cpu").shape == stack.shape
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
 assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES

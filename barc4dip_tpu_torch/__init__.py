@@ -6,10 +6,13 @@ module names and result dicts and runs on an NVIDIA GPU, with hand-written
 CUDA kernels where the JAX package has Pallas kernels. It imports torch and
 numpy, never jax.
 
-Ported so far: the speckle API (``speckle_stats`` and its standalone
+Every module of the JAX package is ported but the TPU workarounds
+(``ops/mxufft.py``, ``ops/uploadcache.py``; ROADMAP "Not to port"): the
+speckle API (``speckle_stats`` and its standalone
 estimators, ``distribution_moments``, ``speckle_stack_stats`` with every
-option but ``mesh``: lazy grain maps, tensor stacks, windowed and phase
-tracking, checkpoints) with kernel K1 (``ops/cuda_fftp.py`` +
+option: lazy grain maps, tensor stacks, windowed and phase tracking,
+checkpoints, and ``mesh=``, frame-axis data parallelism over devices
+through ``parallel``) with kernel K1 (``ops/cuda_fftp.py`` +
 ``csrc/fftp_corr.cu``), ``models.full_step_fn``, and the XST path:
 ``preprocessing`` (flat-field with bad-pixel repair, kernel K2 in
 ``ops/cuda_median.py`` + ``csrc/median3x3.cu``), ``signal`` (dense
@@ -31,16 +34,20 @@ the ``geometry`` helpers, and the metric extensions ``visibility_map``,
 rest of preprocessing: ``preprocessing.deconvolve_psf`` (Wiener,
 Richardson-Lucy, unsupervised Wiener), ``clahe``, ``correct_distortion`` /
 ``distortion_map`` and ``register_stack`` / ``shift_stack`` beside
-``flat_field_correction``, with ``barc4dip-cuda-batch --register``. Kernel
+``flat_field_correction``, with ``barc4dip-cuda-batch --register``; and ``plotting``, host matplotlib,
+imported on first use so that importing the package never imports
+matplotlib. Kernel
 K1 takes every H and W that are multiples of 128 up to 8192, as the TPU
 kernel does. The namespaces ``geometry``, ``maths``, ``signal``,
 ``metrics`` and ``preprocessing`` export every name the JAX package's do.
 
 Work runs on the card: ``device=None`` means cuda and raises where no card
-is available; ``device="cpu"`` (``--device cpu``) asks for the CPU. See
-ROADMAP.md for what is still to port.
+is available; ``device="cpu"`` (``--device cpu``) asks for the CPU.
 """
-from . import config, geometry, maths, metrics, signal, utils
+import importlib as _importlib
+
+from . import config, geometry, maths, metrics, parallel, signal, utils
+from ._version import __version__
 from .io import read_image, write_image
 from .metrics import (
     distribution_moments,
@@ -52,13 +59,21 @@ from .metrics import (
 from .report import logbook_report
 
 __all__ = [
+    "__version__",
     "config",
     "distribution_moments",
     "geometry",
+    "io",
     "logbook_report",
     "maths",
     "metrics",
+    "models",
+    "ops",
+    "parallel",
+    "plotting",
+    "preprocessing",
     "read_image",
+    "report",
     "sharpness_stack_stats",
     "sharpness_stats",
     "signal",
@@ -67,3 +82,18 @@ __all__ = [
     "utils",
     "write_image",
 ]
+
+
+# imported on first use, as in the JAX package; plotting needs matplotlib,
+# which a machine that only computes may lack
+_LAZY_SUBMODULES = ("io", "models", "ops", "plotting", "preprocessing", "report")
+
+
+def __getattr__(name: str):
+    if name in _LAZY_SUBMODULES:
+        return _importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

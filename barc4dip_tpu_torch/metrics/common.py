@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, to_compute, upload
+from ..parallel.mesh import shard_bounds
 
 __all__ = [
     "TILE_GRID_SHAPE_3X3",
@@ -36,14 +37,18 @@ __all__ = [
     "aggregate_subtiles_9x9_to_3x3",
     "apply_display_origin",
     "choose_tiling_mode",
+    "chunk_from_shards",
     "chunk_layout_signature",
+    "chunk_width",
     "frame_loader",
     "nan_std_grid_3x3",
     "normalize_display_origin",
     "normalize_groups",
     "pack_leaves",
     "pack_mean_std",
+    "pull_to_host",
     "run_stack_program",
+    "shard_loaders",
     "split_edges",
     "stack_time_series",
     "subtile_grids_to_3x3_device",
@@ -159,13 +164,22 @@ def aggregate_subtiles_9x9_to_3x3(sub) -> tuple[np.ndarray, np.ndarray]:
     return blocks.mean(axis=-1), blocks.std(axis=-1, ddof=0)
 
 
-def chunk_layout_signature(T: int, frame_chunk: int) -> tuple:
-    """Chunk starts of the port's stack loop over T frames: uniform chunks
-    of ``frame_chunk`` (at most T) frames. Part of a checkpoint's
-    configuration, so chunks saved under one layout never resume under
-    another."""
+def chunk_width(T: int, frame_chunk: int, mesh=None) -> int:
+    """Frames a chunk of the stack loop holds: ``frame_chunk`` (at most T),
+    rounded up to a multiple of ``mesh.size`` under a mesh, as the JAX
+    package rounds it."""
     B = max(1, min(int(frame_chunk), max(1, int(T))))
-    return tuple(range(0, int(T), B))
+    if mesh is not None:
+        B = max(1, -(-B // mesh.size)) * mesh.size
+    return B
+
+
+def chunk_layout_signature(T: int, frame_chunk: int, mesh=None) -> tuple:
+    """Chunk starts of the port's stack loop over T frames: uniform chunks
+    of :func:`chunk_width` frames. Part of a checkpoint's configuration, so
+    chunks saved under one layout (a mesh of another size, or none) never
+    resume under another."""
+    return tuple(range(0, int(T), chunk_width(T, frame_chunk, mesh)))
 
 
 @lru_cache(maxsize=256)
@@ -258,14 +272,58 @@ def tiled_scalar_fields(
 # Chunked stack execution
 # ---------------------------------------------------------------------------
 
-def frame_loader(stack, device=None):
+def frame_loader(stack, device=None, mesh=None):
     """(device, load): ``load(c0, c1)`` gives frames [c0, c1) of a host
     stack or a tensor stack as a compute-dtype tensor on ``device``. A
-    tensor stack stays on its own device."""
+    tensor stack stays on its own device. Under a ``mesh``, a host stack
+    loads onto the mesh's first device and ``device`` is not used."""
     if isinstance(stack, torch.Tensor):
         return stack.device, lambda c0, c1: to_compute(stack[c0:c1])
+    if mesh is not None:
+        device = mesh.devices[0]
     device = resolve_device(device)
     return device, lambda c0, c1: upload(stack[c0:c1], device)
+
+
+def shard_loaders(stack, device=None, mesh=None) -> list:
+    """One (device, load) per shard of a chunk: :func:`frame_loader`'s
+    alone without a mesh, else one a mesh entry, whose ``load(c0, c1)``
+    uploads host frames [c0, c1) to that entry's device, or moves a tensor
+    stack's slice there in its own dtype and casts it there."""
+    if mesh is None:
+        return [frame_loader(stack, device)]
+
+    def loader(dev):
+        if isinstance(stack, torch.Tensor):
+            return lambda c0, c1: to_compute(stack[c0:c1].to(dev))
+        return lambda c0, c1: upload(stack[c0:c1], dev)
+
+    return [(dev, loader(dev)) for dev in mesh.devices]
+
+
+def chunk_from_shards(shards) -> dict:
+    """The {path: array} leaves of a chunk from its shards' ``(host, event,
+    spec)`` (:func:`pull_to_host`, :func:`pack_leaves`), in frame order,
+    each read once its copy is done."""
+    parts = []
+    for host, ready, spec in shards:
+        if ready is not None:
+            ready.synchronize()
+        parts.append(unpack_leaves(host.numpy(), spec))
+    return {path: np.concatenate([p[path] for p in parts]) for path in parts[0]}
+
+
+def pull_to_host(flat: torch.Tensor, device: torch.device):
+    """(host tensor, event): ``flat`` copied into pinned host memory without
+    blocking, and the event that marks the copy done on ``device``'s current
+    stream; on the CPU, ``flat`` itself and no event."""
+    if device.type != "cuda":
+        return flat, None
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return host, ready
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -326,43 +384,42 @@ def run_stack_program(
     :class:`..utils.checkpoint.ChunkStore`: chunks it holds are loaded, the
     others run and are saved.
 
+    With ``mesh`` (:func:`..parallel.frame_mesh`) a chunk holds a multiple
+    of ``mesh.size`` frames and is cut into one contiguous shard a mesh
+    entry: each shard is uploaded to (or, from a tensor stack, moved to) its
+    device, the program runs there, and each device's result vector comes
+    back one chunk behind under its own event. ``device`` is then not used.
+
     Returns the program's tree with a leading T axis, as NumPy."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_stack_program: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
-    device, load = frame_loader(stack, device)
+    placements = shard_loaders(stack, device, mesh)
     T = int(stack.shape[0])
+    width = -(-chunk_width(T, frame_chunk, mesh) // len(placements))
     pieces: dict[int, dict] = {}
     pending = None
 
-    def collect(host, ready, spec, c0):
-        if ready is not None:
-            ready.synchronize()
-        piece = unpack_leaves(host.numpy(), spec)
+    def collect(c0, shards):
+        piece = chunk_from_shards(shards)
         if checkpoint is not None:
             checkpoint.save(c0, unflatten_leaves(piece))
         pieces[c0] = piece
 
-    starts = chunk_layout_signature(T, frame_chunk)
+    starts = chunk_layout_signature(T, frame_chunk, mesh)
     for c0, c1 in zip(starts, (*starts[1:], T)):
         if checkpoint is not None and checkpoint.has(c0):
             pieces[c0] = dict(_leaves(checkpoint.load(c0)))
             continue
-        frames = load(c0, c1)
-        if flip:
-            frames = torch.flip(frames, dims=[-2])
-        flat, spec = pack_leaves(program(frames), c1 - c0, frames.dtype)
-        if device.type == "cuda":
-            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(device))
-        else:
-            host, ready = flat, None
+        shards = []
+        for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
+            if a == b:  # the tail chunk leaves the last shards empty
+                continue
+            frames = load(a, b)
+            if flip:
+                frames = torch.flip(frames, dims=[-2])
+            flat, spec = pack_leaves(program(frames), b - a, frames.dtype)
+            shards.append((*pull_to_host(flat, dev), spec))
         if pending is not None:
             collect(*pending)
-        pending = (host, ready, spec, c0)
+        pending = (c0, shards)
     if pending is not None:
         collect(*pending)
 

@@ -438,8 +438,10 @@ def sharpness_stack_stats(
     without uploads.
     ``parallel``/``n_jobs`` are accepted for API parity and echoed in
     ``meta``. ``checkpoint_dir`` persists each chunk and resumes a rerun of
-    the same call from the chunks on disk. ``mesh`` is not ported and raises
-    ``NotImplementedError``.
+    the same call from the chunks on disk. ``mesh``
+    (:func:`..parallel.frame_mesh`) spreads each chunk's frames over the
+    mesh's devices in contiguous shards (``run_stack_program``); the results
+    equal the unsharded run's.
 
     ``display_origin`` follows the JAX package's stack rule: rows flip if
     and only if the argument equals ``"lower"`` exactly. It is not
@@ -464,10 +466,6 @@ def sharpness_stack_stats(
     serial_mode = (not parallel) or (n_jobs is not None and int(n_jobs) <= 1)
     tile_mode, tile_shape_px = choose_tiling_mode(H, W, tiles=tiles, min_tile_px=MIN_TILE_PX)
     _check_iaw_size(groups, H, W)
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharpness_stack_stats: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
 
     program = _sharpness_device_fn(
         frozenset(groups), tile_mode,
@@ -479,7 +477,7 @@ def sharpness_stack_stats(
             "kind": "sharpness_stack", "shape": (T, H, W), "groups": sorted(groups),
             "mode": tile_mode, "sat": saturation_value, "eps": eps,
             "origin": display_origin, "chunk": frame_chunk,
-            "schedule": chunk_layout_signature(T, frame_chunk),
+            "schedule": chunk_layout_signature(T, frame_chunk, mesh),
         }
         ckpt = ChunkStore(checkpoint_dir, "torch_sharpness_metrics", config)
 
@@ -487,7 +485,7 @@ def sharpness_stack_stats(
         progress_update("Sharpness stats loop", 0, T, -1)
     raw = run_stack_program(
         stack, program, frame_chunk=frame_chunk, flip=(display_origin == "lower"),
-        checkpoint=ckpt, device=device,
+        mesh=mesh, checkpoint=ckpt, device=device,
     )
     out_full, out_tiles = _assemble_stack_output(raw, tile_mode)
     if verbose:

@@ -424,8 +424,13 @@ def speckle_stack_stats(
     displacements equal the full search's while the drift stays inside it.
     ``checkpoint_dir`` persists each chunk and resumes a rerun of the same
     call from the chunks on disk. ``grain_maps`` attaches the lazy per-frame
-    autocorrelation maps. ``mesh`` is not ported and raises
-    ``NotImplementedError``.
+    autocorrelation maps.
+
+    ``mesh`` (:func:`..parallel.frame_mesh`) spreads each chunk's frames
+    over the mesh's devices in contiguous shards (the chunk rounded up to a
+    multiple of ``mesh.size`` frames); the results equal the unsharded
+    run's. A lazy grain map is then computed, when read, on the mesh's
+    first device (a tensor stack's: on its own device).
 
     ``display_origin`` follows the JAX package's stack rule: rows flip (tile
     grids and lazy maps) if and only if the argument equals ``"lower"``
@@ -464,10 +469,6 @@ def speckle_stack_stats(
         if float(tracking_search_radius) < 1:
             raise ValueError("tracking_search_radius must be >= 1 px.")
         search_px = int(np.ceil(float(tracking_search_radius)))
-    if mesh is not None:
-        raise NotImplementedError(
-            "speckle_stack_stats: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
     flip = display_origin == "lower"
 
     mode, _tile_shape = choose_tiling_mode(H, W, tiles=tiles, min_tile_px=MIN_TILE_PX)
@@ -483,7 +484,7 @@ def speckle_stack_stats(
             "roi": roi_side, "step": step, "method": tracking_method,
             "subpixel": bool(subpixel), "grain_maps": bool(grain_maps),
             "search": search_px, "maps": "lazy-v2",
-            "schedule": chunk_layout_signature(T, frame_chunk),
+            "schedule": chunk_layout_signature(T, frame_chunk, mesh),
         }
         ckpt = ChunkStore(checkpoint_dir, "torch_speckle_fused", config)
 
@@ -500,12 +501,13 @@ def speckle_stack_stats(
         track_eps=1e-9,
         frame_chunk=frame_chunk,
         search_radius=search_px,
+        mesh=mesh,
         checkpoint=ckpt,
         device=device,
     )
     out_full, out_tiles = _assemble_stack_output(raw_metrics, mode)
     if "grain" in groups and grain_maps:
-        _, load = frame_loader(stack, device)
+        _, load = frame_loader(stack, device, mesh)
         dtype = np.float64 if str(stack.dtype).endswith("float64") else np.float32
         _attach_lazy_grain_maps(
             out_full["grain"], load, T, square_embed_slices((H, W))[2], dtype, flip=flip

@@ -28,11 +28,17 @@ import torch
 
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
+from ..parallel.mesh import shard_bounds
 from .common import (
     _leaves,
     apply_display_origin,
+    chunk_from_shards,
+    chunk_layout_signature,
+    chunk_width,
     frame_loader,
     pack_leaves,
+    pull_to_host,
+    shard_loaders,
     unflatten_leaves,
     unpack_leaves,
 )
@@ -177,6 +183,7 @@ def run_fused_speckle_stack(
     track_eps: float = 1e-9,
     frame_chunk: int = 4,
     search_radius: int | None = None,
+    mesh=None,
     checkpoint=None,
     device=None,
 ):
@@ -187,12 +194,19 @@ def run_fused_speckle_stack(
     ``checkpoint`` is a :class:`..utils.checkpoint.ChunkStore`: chunks it
     holds are loaded, the others run and are saved.
 
+    With ``mesh``, each chunk (a multiple of ``mesh.size`` frames) is cut
+    into one contiguous shard a mesh entry and each shard runs on its
+    device: the frame-0 template bank is built once a device, and the
+    incremental reference of a shard's first frame is the previous shard's
+    last frame (for the first shard, the previous chunk's), moved to the
+    shard's device.
+
     Returns (metrics tree with a leading T axis, as numpy;
     (dx_abs, dy_abs, dx_inc, dy_inc), each (T, 3, 3) float32)."""
-    device, load = frame_loader(stack, device)
+    placements = shard_loaders(stack, device, mesh)
     T, H, W = (int(v) for v in stack.shape)
     starts, _, s = _grid_geometry(grid_slices)
-    B = max(1, min(int(frame_chunk), T))
+    width = -(-chunk_width(T, frame_chunk, mesh) // len(placements))
     hint = int_value_hint(stack.dtype)
     metric_fn = speckle_device_fn(frozenset(groups), mode, sat, eps)
     windows = None
@@ -211,53 +225,51 @@ def run_fused_speckle_stack(
     track_out = np.empty((4, T, 9), np.float32)  # dy_a, dx_a, dy_i, dx_i
     pieces: dict[int, dict] = {}
     pending = None
-    tpl0 = None
+    frame0 = None
+    tpl0: dict = {}  # the frame-0 bank, one a device
     prev = None  # the incremental reference of the chunk's first frame
 
     def store(c0, c1, metrics, tr):
         pieces[c0] = metrics
         track_out[:, c0:c1] = tr
 
-    def collect(host, ready, spec, c0, c1):
-        if ready is not None:
-            ready.synchronize()
-        out = unpack_leaves(host.numpy(), spec)
+    def collect(c0, c1, shards):
+        out = chunk_from_shards(shards)
         tr = np.stack([out.pop(f"track\0{i}") for i in range(4)])
         if checkpoint is not None:
             checkpoint.save(c0, {"metrics": unflatten_leaves(out), "track": dict(zip(_TRACK_KEYS, tr))})
         store(c0, c1, out, tr)
 
-    for c0 in range(0, T, B):
-        c1 = min(c0 + B, T)
+    chunk_starts = chunk_layout_signature(T, frame_chunk, mesh)
+    for c0, c1 in zip(chunk_starts, (*chunk_starts[1:], T)):
         if checkpoint is not None and checkpoint.has(c0):
             piece = checkpoint.load(c0)
             store(c0, c1, dict(_leaves(piece["metrics"])),
                   np.stack([piece["track"][k] for k in _TRACK_KEYS]))
             prev = None
             continue
-        if tpl0 is None:
-            tpl0 = _build_tpl0(load(0, 1)[0], starts, s, H, W, method, track_eps, windows)
+        if frame0 is None:  # read once, before the predecessor (a file view caches one frame)
+            frame0 = placements[0][1](0, 1)[0]
         if prev is None:  # the predecessor of frame 0 is frame 0 itself
-            prev = load(max(c0 - 1, 0), max(c0, 1))[0]
-        frames = load(c0, c1)
-        shown = apply_display_origin(frames, display_origin="lower") if flip else frames
-        result = metric_fn(shown, int_range=hint)
-        prevs = torch.cat([prev[None], frames[:-1]])
-        result["track"] = dict(enumerate(track(frames, prevs, tpl0)))
-        prev = frames[-1]
-
-        # one vector per chunk leaves the device
-        flat, spec = pack_leaves(result, c1 - c0, frames.dtype)
-        if device.type == "cuda":
-            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(device))
-        else:
-            host, ready = flat, None
+            prev = placements[0][1](max(c0 - 1, 0), max(c0, 1))[0]
+        shards = []
+        for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
+            if a == b:  # the tail chunk leaves the last shards empty
+                continue
+            if dev not in tpl0:
+                tpl0[dev] = _build_tpl0(frame0.to(dev), starts, s, H, W, method, track_eps, windows)
+            frames = load(a, b)
+            shown = apply_display_origin(frames, display_origin="lower") if flip else frames
+            result = metric_fn(shown, int_range=hint)
+            prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
+            result["track"] = dict(enumerate(track(frames, prevs, tpl0[dev])))
+            prev = frames[-1]
+            # one vector per shard leaves the device
+            flat, spec = pack_leaves(result, b - a, frames.dtype)
+            shards.append((*pull_to_host(flat, dev), spec))
         if pending is not None:
             collect(*pending)
-        pending = (host, ready, spec, c0, c1)
+        pending = (c0, c1, shards)
     if pending is not None:
         collect(*pending)
 

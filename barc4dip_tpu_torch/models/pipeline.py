@@ -8,8 +8,8 @@ Each pipeline takes ``device`` once, in its constructor (``None``: the card,
 and an error without one; ``"cpu"`` for the CPU), and hands it to every call
 it makes. The file-driven entry points (``run_files``, ``run_edf_files``,
 ``run_hdf5``) stream frames from disk chunk by chunk through
-:class:`_FrameSequence` / :class:`_NdarrayView`; the one option that still
-raises ``NotImplementedError`` is ``mesh``.
+:class:`_FrameSequence` / :class:`_NdarrayView`. ``mesh``
+(:func:`..parallel.frame_mesh`) spreads the frames over the mesh's devices.
 """
 from __future__ import annotations
 
@@ -188,9 +188,9 @@ class SharpnessScanPipeline:
 class SpeckleStackPipeline:
     """Flat-field + speckle-stack analysis as a single configured pipeline.
 
-    Parameters mirror :func:`..metrics.speckle_stack_stats`; of them only
-    ``mesh`` is not ported, and raises there. ``device`` is where numpy
-    stacks, file frames and the flat-field run.
+    Parameters mirror :func:`..metrics.speckle_stack_stats`; ``mesh``
+    shards the frame axis there. ``device`` is where numpy stacks, file
+    frames (without a mesh) and the flat-field run.
     """
 
     def __init__(

@@ -241,12 +241,15 @@ def ncc_sums(ref, frames, y0s, x0s, s: int, r: int):
     lay = launch_layout(s, r)
     num, s1, s2 = (torch.empty((Fn * gy * gx, L, L), dtype=torch.float32, device=ref.device)
                    for _ in range(3))
-    rc = lib.densetrack_sums(
-        ref.device.index, ref.data_ptr(), frames3.data_ptr(), ty.data_ptr(), tx.data_ptr(),
-        Fn, H, W, gy, gx, s, r, lay.sp, lay.wp, lay.tpp, lay.ksplit, lay.threads, lay.smem,
-        num.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-        torch.cuda.current_stream(ref.device).cuda_stream,
-    )
+    # the binding switches the runtime to ref's device: the guard puts the
+    # caller's current device back after the launch
+    with torch.cuda.device(ref.device):
+        rc = lib.densetrack_sums(
+            ref.device.index, ref.data_ptr(), frames3.data_ptr(), ty.data_ptr(), tx.data_ptr(),
+            Fn, H, W, gy, gx, s, r, lay.sp, lay.wp, lay.tpp, lay.ksplit, lay.threads, lay.smem,
+            num.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            torch.cuda.current_stream(ref.device).cuda_stream,
+        )
     _nvcc.raise_on(lib, _STEM, rc, "K3 densetrack_sums")
     LAUNCHES["ncc_sums"] += 1
     return num, s1, s2

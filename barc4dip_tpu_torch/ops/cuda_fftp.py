@@ -198,14 +198,17 @@ def _cols(lib, F3, G, NF, K, shared, H, W):
 
 def _corr_kernel(F3, G, NF, K, shared, H, W):
     lib = build()
-    mid = _cols(lib, F3, G, NF, K, shared, H, W)
-    out = torch.empty((NF * K, H, W), dtype=torch.float32, device=F3.device)
-    tw = _twiddles(W, F3.device)
-    rc = lib.fftp_corr_rows(
-        F3.device.index, mid.data_ptr(), out.data_ptr(),
-        tw.data_ptr(), tw.numel(), H, W, NF * K, 1.0 / float(H * W),
-        torch.cuda.current_stream(F3.device).cuda_stream,
-    )
+    # the binding switches the runtime to F3's device: the guard puts the
+    # caller's current device back after the launch
+    with torch.cuda.device(F3.device):
+        mid = _cols(lib, F3, G, NF, K, shared, H, W)
+        out = torch.empty((NF * K, H, W), dtype=torch.float32, device=F3.device)
+        tw = _twiddles(W, F3.device)
+        rc = lib.fftp_corr_rows(
+            F3.device.index, mid.data_ptr(), out.data_ptr(),
+            tw.data_ptr(), tw.numel(), H, W, NF * K, 1.0 / float(H * W),
+            torch.cuda.current_stream(F3.device).cuda_stream,
+        )
     _nvcc.raise_on(lib, _STEM, rc, "K1 corr_rows_c2r")
     LAUNCHES["rows"] += 1
     return out.view(NF, K, H, W)
@@ -215,19 +218,20 @@ def _ncc_kernel(F3, G, var3, energy, NF, K, shared, H, W, vh, vw, eps):
     lib = build()
     _nvcc.check_tensor(var3, "K1", "var_full", torch.float32, (NF, H, W))
     _nvcc.check_tensor(energy, "K1", "energy", torch.float32, (K,) if shared else (NF, K))
-    mid = _cols(lib, F3, G, NF, K, shared, H, W)
     NB = NF * K
-    maps = torch.empty((NB, H, W), dtype=torch.float32, device=F3.device)
-    rowmax = torch.empty((NB, H), dtype=torch.float32, device=F3.device)
-    rowarg = torch.empty((NB, H), dtype=torch.int32, device=F3.device)
-    tw = _twiddles(W, F3.device)
-    rc = lib.fftp_corr_rows_ncc(
-        F3.device.index, mid.data_ptr(), maps.data_ptr(),
-        tw.data_ptr(), tw.numel(), H, W, NB, 1.0 / float(H * W),
-        var3.data_ptr(), energy.data_ptr(), K, int(shared), sqrt_threshold(float(eps)),
-        int(vh), int(vw), rowmax.data_ptr(), rowarg.data_ptr(),
-        torch.cuda.current_stream(F3.device).cuda_stream,
-    )
+    with torch.cuda.device(F3.device):  # as in _corr_kernel
+        mid = _cols(lib, F3, G, NF, K, shared, H, W)
+        maps = torch.empty((NB, H, W), dtype=torch.float32, device=F3.device)
+        rowmax = torch.empty((NB, H), dtype=torch.float32, device=F3.device)
+        rowarg = torch.empty((NB, H), dtype=torch.int32, device=F3.device)
+        tw = _twiddles(W, F3.device)
+        rc = lib.fftp_corr_rows_ncc(
+            F3.device.index, mid.data_ptr(), maps.data_ptr(),
+            tw.data_ptr(), tw.numel(), H, W, NB, 1.0 / float(H * W),
+            var3.data_ptr(), energy.data_ptr(), K, int(shared), sqrt_threshold(float(eps)),
+            int(vh), int(vw), rowmax.data_ptr(), rowarg.data_ptr(),
+            torch.cuda.current_stream(F3.device).cuda_stream,
+        )
     _nvcc.raise_on(lib, _STEM, rc, "K1 corr_rows_c2r_ncc")
     LAUNCHES["rows_ncc"] += 1
     # the first row holding the plane's maximum, then that row's first column

@@ -121,10 +121,13 @@ def median3x3(x):
     if B > 65535:
         raise ValueError(f"K2: at most 65535 planes per launch; got {B}")
     out = torch.empty_like(x)
-    rc = lib.median3x3(
-        x.device.index, x.data_ptr(), out.data_ptr(), B, H, W,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the binding switches the runtime to x's device: the guard puts the
+    # caller's current device back after the launch
+    with torch.cuda.device(x.device):
+        rc = lib.median3x3(
+            x.device.index, x.data_ptr(), out.data_ptr(), B, H, W,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _nvcc.raise_on(lib, _STEM, rc, "K2 median3x3")
     LAUNCHES["median3x3"] += 1
     return out

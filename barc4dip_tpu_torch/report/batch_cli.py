@@ -7,9 +7,10 @@ HDF5 stack or a sequence of EDF/TIFF frames, out-of-core where possible,
 writing a JSON summary, an optional .npz of the full outputs and an
 optional Markdown report. Flags are those of ``barc4dip-batch``;
 ``--device`` is the one addition, the port's explicit device (default
-``cuda``, which fails without a card; ``cpu`` runs on the CPU). One flag
-is accepted and not ported yet: ``--mesh`` raises where more than one CUDA
-device is visible (on one device it shards nothing, as in the JAX script).
+``cuda``, which fails without a card; ``cpu`` runs on the CPU). ``--mesh``
+shards the frames over every visible CUDA device
+(``parallel.frame_mesh()``) where there are two or more; on one device, or
+with ``--device cpu``, it shards nothing, as in the JAX script.
 
 Examples
 --------
@@ -151,10 +152,9 @@ def main(argv: list[str] | None = None) -> int:
     device = cli_device(args.device)
     mesh = None  # on one device there is nothing to shard
     if args.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "barc4dip-cuda-batch: --mesh over several CUDA devices is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)"
-        )
+        from ..parallel import frame_mesh
+
+        mesh = frame_mesh()
 
     inputs = _expand_inputs(args.input)
     # calibration paths accept globs too (multi-file flats/darks stack and

@@ -127,24 +127,23 @@ def spectral_summary_stack(
     frames, and only the (T, nbins)/(T, nr) curves come back. A numpy stack
     is uploaded chunk by chunk in its own dtype (integer detector frames
     are cast on the device); a tensor stack is sliced on its own device.
-    ``mesh`` is not ported yet.
+    ``mesh`` (:func:`..parallel.frame_mesh`) shards each chunk's frames
+    over the mesh's devices.
 
     Returns {"radial_binned": (T, nbins), "r_binned": (nbins,),
     "radial_interpolated": (T, nr), "r_interpolated": (nr,)} as NumPy.
     """
     from ..metrics.common import run_stack_program
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "spectral_summary_stack: mesh is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
     arr = stack if hasattr(stack, "ndim") else np.asarray(stack)
     if arr.ndim != 3:
         raise ValueError(f"stack must be 3D (T, H, W); got ndim={arr.ndim}")
     _, ny, nx = (int(v) for v in arr.shape)
     resolve_steps_2d(shape=(ny, nx), x=x, y=y, dx=dx, dy=dy)  # validates the calibration
 
-    out = run_stack_program(arr, _stack_program, frame_chunk=frame_chunk, device=device)
+    out = run_stack_program(
+        arr, _stack_program, frame_chunk=frame_chunk, mesh=mesh, device=device
+    )
 
     *_, r_b = binned_geometry((ny, nx), None, 1.0)
     *_, r_i = interpolated_geometry((ny, nx), None, None, None)

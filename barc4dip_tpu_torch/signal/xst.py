@@ -132,14 +132,14 @@ def track_displacement_stack(
     With ``method`` resolving to ``"pallas"``, frames run in batches of
     ``frame_batch`` through one K3 launch per batch (the tail batch is padded
     with copies of its last frame). Otherwise each frame is tracked alone.
-    Either way the device runs one call ahead of the host's pull. Returns
+    Either way the device runs one call ahead of the host's pull. With
+    ``mesh`` (:func:`..parallel.frame_mesh`), frames go round-robin over
+    the mesh's entries, the reference is placed once a device, one frame a
+    device is in flight before the host collects, and frames are not
+    batched (one K3 launch a frame); ``device`` is then not used. Returns
     the dict of :func:`track_displacement_field` with a leading T axis on
-    ``dy``/``dx``/``peak``. ``mesh`` is not ported yet.
+    ``dy``/``dx``/``peak``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "track_displacement_stack: mesh= is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
     if not hasattr(stack, "ndim"):  # a lazy frame view stays lazy
         stack = np.asarray(stack)
     if stack.ndim != 3:
@@ -148,9 +148,11 @@ def track_displacement_stack(
     ref = stack[0] if ref is None else ref
     if tuple(ref.shape) != (H, W):
         raise ValueError(f"ref shape {tuple(ref.shape)} != frame shape {(H, W)}")
-    device = _device_of(device, stack, ref)
     s, r, step, subpixel = int(tile_size), int(search_radius), int(step), bool(subpixel)
     eps = float(np.float32(eps))
+    if mesh is not None:
+        return _track_stack_mesh(stack, ref, mesh, T, H, W, s, r, step, subpixel, eps, method)
+    device = _device_of(device, stack, ref)
     ref_dev = _on(ref, device)
 
     resolved = resolve_track_method(str(method), device)
@@ -185,6 +187,30 @@ def track_displacement_stack(
         pending = (out, n)
     _collect(pending, dys, dxs, peaks)
 
+    return _stack_result(dys, dxs, peaks, y0s, x0s, (T, H, W), s, step, r, subpixel,
+                         resolved, **extra)
+
+
+def _track_stack_mesh(stack, ref, mesh, T, H, W, s, r, step, subpixel, eps, method) -> dict:
+    """Frame t on mesh entry t % mesh.size, tracked alone (F = 1), with at
+    most one frame an entry in flight before the host collects."""
+    devices = mesh.devices
+    resolved = resolve_track_method(str(method), devices[0])
+    program, (y0s, x0s) = dense_track_program(H, W, s, r, step, subpixel, resolved)
+    refs = {d: _on(ref, d) for d in dict.fromkeys(devices)}  # placed once a device
+    dys, dxs, peaks = [], [], []
+    pending: list = []
+    for t in range(T):
+        d = devices[t % len(devices)]
+        pending.append((program(_on(stack[t], d), refs[d], eps), 1))
+        if len(pending) > len(devices):
+            _collect(pending.pop(0), dys, dxs, peaks)
+    for item in pending:
+        _collect(item, dys, dxs, peaks)
+    return _stack_result(dys, dxs, peaks, y0s, x0s, (T, H, W), s, step, r, subpixel, resolved)
+
+
+def _stack_result(dys, dxs, peaks, y0s, x0s, shape, s, step, r, subpixel, method, **extra):
     half = (s - 1) / 2.0
     return {
         "dy": np.concatenate(dys),
@@ -192,8 +218,8 @@ def track_displacement_stack(
         "peak": np.concatenate(peaks),
         "y": np.asarray(y0s, np.float64) + half,
         "x": np.asarray(x0s, np.float64) + half,
-        "meta": _meta("displacement_stack", "stack_shape", (T, H, W), s, step, r,
-                      subpixel, resolved, y0s, x0s, **extra),
+        "meta": _meta("displacement_stack", "stack_shape", shape, s, step, r,
+                      subpixel, method, y0s, x0s, **extra),
     }
 
 

@@ -175,6 +175,28 @@ Phases, one line each with its wall time:
 15. files-xst: the corrected XST frames and reference written as float32
     EDF files; ``WavefrontScanPipeline.run_files`` exactly equal to the
     in-memory call on the same arrays, with the same K3 launches;
+15a. mesh: ``mesh=`` on one card. Config D unsharded, under
+   ``parallel.frame_mesh()`` (one shard a card) and under
+   ``frame_mesh(["cuda:0", "cuda:0"])`` (two shards on one card, so a shard
+   boundary inside every chunk), from numpy and from a CUDA tensor, each
+   run twice, the second counted: MP/s, K1 launches by pass (one K1a and
+   two K1b a shard), tracking within 0.05 px of the spiral, metric leaves
+   within 1e-5 (relative, as the value gate weighs them) of the unsharded
+   run, trajectories within 1e-3 px of it and of a float64 run on the card
+   (float32 integral images round differently under another batch shape),
+   the current device unchanged; under
+   the two-shard mesh ``sharpness_stack_stats`` on frames 0-7 (two K1a
+   against one), ``spectral_summary_stack`` on frames 0-15 (four K1a
+   against two) and the XST pass (the flat-field unsharded, then one K3
+   launch a frame against two batched launches), each within 1e-5 of its
+   unsharded run. Two shards on one card only add launches: no gain is
+   sought;
+15b. examples: ``examples/cuda/ex_01`` .. ``ex_07`` in this process at full
+   size without an output directory, each script's printed check held
+   (best focus frame, the report, finite widths, ex_04's trajectory error
+   < 0.1 px, deconvolution lowering the MSE, the batch script's exit code
+   0, ex_07's curvature radius within 10% through K3); ``ex_00`` writes
+   HDF5 through ``h5py`` and runs in the CPU tests only;
 16. with ``--profile``: the metric step and the tracker of one Config D
     chunk timed apart, then the Config D slice, the single-image sharpness
     call (whole, then group by group), ``spectral_summary`` (Config C) and
@@ -267,6 +289,14 @@ REG_MEAN_GATE_PX = 0.1  # against the blurred mean, as tests/test_registration.p
 # off the spiral on them at 512^2 on the CPU, the port the same
 REG_U16_GATE_PX = 0.2
 BINNED_ATOL_REL, SUMMARY_FRAME_RTOL = 1e-6, 1e-5
+# mesh=: a sharded run against the unsharded one, metric leaves (float32
+# sums over another batch shape) and trajectories. The JAX test's trajectory
+# bound, 1e-5 px, is a float64 one: on the card the float32 integral images
+# of the window variance sums round differently under another batch shape
+# (3.1e-4 px on Config D on an H100), so the trajectories are held at the card's
+# float32 bound (WINDOW_ATOL_PX), against the unsharded run and against a
+# float64 run; the examples' tracking gate
+MESH_RTOL, EXAMPLE_TRACK_PX = 1e-5, 0.1
 # published H100 SXM peaks at 700 W: device memory, float32 outside the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
@@ -2516,6 +2546,206 @@ def run_files_xst(torch, dev, xst: dict, card: str) -> dict:
     return {"launches": launches}
 
 
+# -- mesh= and the examples ------------------------------------------------------
+
+def mesh_diff(out: dict, ref: dict) -> tuple[str | None, float, float]:
+    """(worst metric leaf, its relative error, max |trajectory diff| px) of
+    a sharded run against the unsharded one: the eager ``full`` / ``tiles``
+    leaves as ``compare_leaves`` weighs them, ``temporal`` abs/inc dx, dy."""
+    run, want = _data_leaves(out), _data_leaves(ref)
+    if run.keys() != want.keys():
+        return "keys", float("inf"), float("inf")
+    metric = {k: np.asarray(v, np.float64) for k, v in run.items() if not k.startswith("temporal")}
+    metric_ref = {k: np.asarray(v, np.float64) for k, v in want.items() if not k.startswith("temporal")}
+    worst, err, _n = compare_leaves(metric, metric_ref)
+    track = max(float(np.abs(run[f"temporal.{b}.{k}"] - want[f"temporal.{b}.{k}"]).max())
+                for b in ("abs", "inc") for k in ("dx", "dy"))
+    return worst, err, track
+
+
+def run_mesh(torch, dev, stack, data: dict, card: str) -> dict:
+    """``mesh=`` on one card: Config D unsharded, under ``frame_mesh()``
+    (one shard) and under a two-entry mesh on cuda:0 (two shards, so a shard
+    boundary inside every chunk), from numpy and from a CUDA tensor; then
+    under the two-shard mesh ``sharpness_stack_stats`` (frames 0-7),
+    ``spectral_summary_stack`` (frames 0-15) and the XST pass. No gain is
+    sought: two shards on one card only add launches."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.config import upload
+    from barc4dip_tpu_torch.models import WavefrontScanPipeline
+    from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_fftp, cuda_median
+    from barc4dip_tpu_torch.parallel import frame_mesh
+    from barc4dip_tpu_torch.preprocessing import flat_field_correction
+
+    meshes = {"unsharded": None, "frame_mesh()": frame_mesh(), "2 x cuda:0": frame_mesh([dev, dev])}
+    two = meshes["2 x cuda:0"]
+    T, H, W = stack.shape
+    kw = dict(metrics="all", tiles=True, frame_chunk=FRAME_CHUNK, verbose=False)
+    chunks = -(-T // FRAME_CHUNK)
+    res: dict = {}
+    current = torch.cuda.current_device()
+    # the trajectories in float64 on the card: what float32 rounding moves
+    ref64 = port.speckle_stack_stats(stack.astype(np.float64), metrics="stats", tiles=False,
+                                     frame_chunk=FRAME_CHUNK, verbose=False, grain_maps=False,
+                                     device=dev)
+    track64 = {f"{b}.{k}": ref64["temporal"][b][k] for b in ("abs", "inc") for k in ("dx", "dy")}
+    for form, st in (("numpy", stack), ("CUDA tensor", torch.from_numpy(stack).to(dev))):
+        ref = None
+        for label, mesh in meshes.items():
+            run_kw = dict(kw, mesh=mesh, device=None if isinstance(st, torch.Tensor) else dev)
+            port.speckle_stack_stats(st, **run_kw)
+            cuda_fftp.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = port.speckle_stack_stats(st, **run_kw)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            launches = dict(cuda_fftp.LAUNCHES)
+            shards = chunks * (1 if mesh is None else mesh.size)
+            want = {"cols": 3 * shards, "rows": shards, "rows_ncc": 2 * shards}
+            err = spiral_error(out)
+            if ref is None:
+                ref, diff = out, (None, 0.0, 0.0)
+            else:
+                diff = mesh_diff(out, ref)
+            err64 = max(float(np.abs(out["temporal"][b][k] - track64[f"{b}.{k}"]).max())
+                        for b in ("abs", "inc") for k in ("dx", "dy"))
+            log(f"mesh: Config D ({form}) {label}: counted run {warm_s:.3f} s = "
+                f"{T * H * W / 1e6 / warm_s:.2f} MP/s; K1 launches {json.dumps(launches)}; tracking "
+                f"{err:.4f} px from the spiral; vs unsharded: metric leaves max rel err {diff[1]:.3e} "
+                f"({diff[0]}), trajectories max |diff| {diff[2]:.3e} px; trajectories vs float64 "
+                f"{err64:.3e} px; {card}")
+            if launches != want:
+                raise AssertionError(f"mesh {label}: K1 launches {launches} != {want}")
+            if not (err <= TRACK_GATE_PX and diff[1] <= MESH_RTOL and diff[2] <= WINDOW_ATOL_PX
+                    and err64 <= WINDOW_ATOL_PX):
+                raise AssertionError(f"mesh {label} ({form}): tracking {err:.4f} px, vs unsharded {diff}, "
+                                     f"vs float64 {err64:.3e} px")
+            if torch.cuda.current_device() != current:
+                raise AssertionError(f"mesh {label}: current device {torch.cuda.current_device()} != {current}")
+            res[f"Config D {form} {label}"] = launches
+        del ref, out
+
+    # the sharpness stack, frames 0..SHARP_T-1, one chunk of SHARP_CHUNK
+    outs = {}
+    for label, mesh in (("unsharded", None), ("2 x cuda:0", two)):
+        cuda_fftp.reset_counts()
+        t0 = time.perf_counter()
+        outs[label] = port.sharpness_stack_stats(stack[:SHARP_T], frame_chunk=SHARP_CHUNK, mesh=mesh,
+                                                 verbose=False, device=dev)
+        res[f"sharpness_stack_stats {label}"] = launches = dict(cuda_fftp.LAUNCHES)
+        log(f"mesh: sharpness_stack_stats {SHARP_T} x {H}x{W} {label}: {time.perf_counter() - t0:.3f} s; "
+            f"K1 launches {json.dumps(launches)}; {card}")
+    worst, err, n = compare_leaves(metric_leaves(outs["2 x cuda:0"]), metric_leaves(outs["unsharded"]))
+    log(f"mesh: sharpness stack, two shards vs unsharded: {n} leaves, max rel err {err:.3e} on {worst}")
+    if not (err <= MESH_RTOL and res["sharpness_stack_stats 2 x cuda:0"]["rows"] == 2
+            and res["sharpness_stack_stats unsharded"]["rows"] == 1):
+        raise AssertionError(f"mesh sharpness stack: {worst} {err:.3e}, launches {res}")
+
+    # the scan-series quick-look, frames 0..SUMMARY_T-1 at SUMMARY_CHUNK
+    curves = {}
+    for label, mesh in (("unsharded", None), ("2 x cuda:0", two)):
+        cuda_fftp.reset_counts()
+        curves[label] = port.signal.spectral_summary_stack(stack[:SUMMARY_T], frame_chunk=SUMMARY_CHUNK,
+                                                           mesh=mesh, device=dev)
+        res[f"spectral_summary_stack {label}"] = dict(cuda_fftp.LAUNCHES)
+    errs = {k: leaf_rel_err(curves["2 x cuda:0"][k], curves["unsharded"][k])
+            for k in ("radial_binned", "radial_interpolated")}
+    n_k1a = [res[f"spectral_summary_stack {k}"]["rows"] for k in ("unsharded", "2 x cuda:0")]
+    log(f"mesh: spectral_summary_stack {SUMMARY_T} frames, chunk {SUMMARY_CHUNK}: K1a launches "
+        f"unsharded / two shards {n_k1a[0]} / {n_k1a[1]}; curves max rel err {json.dumps(errs)}")
+    if not (max(errs.values()) <= MESH_RTOL and n_k1a == [2, 4]):
+        raise AssertionError(f"mesh spectral_summary_stack: {errs}, K1a {n_k1a}")
+
+    # the XST pass: the flat-field (K2) unsharded, the scan round-robin (K3 at F = 1)
+    ff = dict(flats=data["flats"], darks=data["darks"], bad_pixel_removal=True)
+    fields = {}
+    for label, mesh in (("unsharded", None), ("2 x cuda:0", two)):
+        pipe = WavefrontScanPipeline(pixel_size=XST_PIXEL, distance=XST_DIST, wavelength=1e-10,
+                                     tile_size=XST_TILE, step=XST_STEP, search_radius=XST_RADIUS,
+                                     mesh=mesh)
+        cuda_median.reset_counts()
+        cuda_densetrack.reset_counts()
+        t0 = time.perf_counter()
+        ref_c = flat_field_correction(upload(data["ref"], dev), **ff)
+        st_c = flat_field_correction(upload(data["stack"], dev), **ff)
+        fields[label] = pipe(st_c, ref_c)
+        xst_s = time.perf_counter() - t0
+        res[f"xst {label}"] = launches = {**cuda_median.LAUNCHES, **cuda_densetrack.LAUNCHES}
+        log(f"mesh: XST pass {XST_T} x {SIDE}^2 {label}: {xst_s:.4f} s; K2/K3 launches "
+            f"{json.dumps(launches)}; {card}")
+    errs = {k: float(np.abs(fields["2 x cuda:0"][k] - fields["unsharded"][k]).max()
+                     / np.abs(fields["unsharded"][k]).max()) for k in ("dy", "dx", "peak")}
+    log(f"mesh: XST field, two shards vs unsharded: max |diff| / max per output {json.dumps(errs)}")
+    want_k3 = {"unsharded": -(-XST_T // XST_BATCH), "2 x cuda:0": XST_T}
+    if not (max(errs.values()) <= K3_ATOL_REL
+            and all(res[f"xst {k}"]["ncc_sums"] == v for k, v in want_k3.items())):
+        raise AssertionError(f"mesh XST: {errs}, launches {res}")
+    return res
+
+
+EXAMPLES = REPO / "examples" / "cuda"
+
+
+def run_examples(torch, dev, card: str) -> dict:
+    """``examples/cuda/ex_01`` .. ``ex_07`` in this process on the card, at
+    full size and without an output directory (so no plotting), each
+    script's printed check held. ``ex_00`` writes HDF5 through ``h5py``:
+    it runs in the CPU tests only."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+
+    from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_fftp
+
+    if os.environ.get("BARC4DIP_EX_FAST"):
+        raise RuntimeError("BARC4DIP_EX_FAST is set: the examples phase runs them at full size")
+    log("examples: ex_00 (HDF5 through h5py) runs in tests/test_torch_examples.py on the CPU only")
+    results = {}
+    for path in sorted(EXAMPLES.glob("ex_0[1-7]_*.py")):
+        module = runpy.run_path(str(path), run_name="example")
+        cuda_fftp.reset_counts()
+        cuda_densetrack.reset_counts()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            got = module["main"](None, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        text = printed.getvalue()
+        launches = {**cuda_fftp.LAUNCHES, **cuda_densetrack.LAUNCHES}
+        stem = path.stem[:5]
+        lines = [ln for ln in text.splitlines() if ln.strip() and not ln.startswith(("-", "#", "`", "|", " "))]
+        log(f"examples: {path.name} {secs:.2f} s; launches {json.dumps(launches)}; {card}")
+        for ln in lines[:8]:
+            log(f"  {stem}> {ln[:160]}")
+        if stem == "ex_01":
+            ok = f"best-focus frame: {got['true']} (true: {got['true']})" in text and "## " in got["report"]
+        elif stem == "ex_02":
+            ok = "# Speckle summary" in text and np.isfinite(got["visibility"])
+        elif stem == "ex_03":
+            ok = (np.isfinite(got["width_px"]) and not got["hit_edge"] and got["series_shape"][0] == 4
+                  and launches["rows"] >= 1)
+        elif stem == "ex_04":
+            err = float(text.split("max trajectory error: ")[1].split(" px")[0])
+            ok = err < EXAMPLE_TRACK_PX and got["window_delta_px"] <= WINDOW_ATOL_PX
+        elif stem == "ex_05":
+            ok = (all(r < b for b, r in (got[f"mse_{m}"] for m in ("wiener", "rl", "uw")))
+                  and got["clahe_std"][1] > got["clahe_std"][0] and got["residual_px"] <= REG_RESIDUAL_PX)
+        elif stem == "ex_06":
+            shutil.rmtree(got["out_dir"], ignore_errors=True)
+            ok = got["rc"] == 0 and abs(got["r_final_px"] - float(np.hypot(0.2 * 7, 0.15 * 7))) <= 0.1
+        else:  # ex_07 asserts its radius itself
+            ok = got["method"] == "pallas" and launches["ncc_sums"] >= 1
+        if not ok:
+            raise AssertionError(f"{path.name}: check failed; returned {got!r}; printed {text[-1500:]}")
+        results[stem] = {"s": secs, "launches": launches}
+    if sorted(results) != [f"ex_0{i}" for i in range(1, 8)]:
+        raise AssertionError(f"examples run: {sorted(results)}")
+    return results
+
+
 def contract_line(name: str) -> dict:
     """The result line: this run drives one card, whatever the host holds."""
     return {"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}
@@ -2637,6 +2867,12 @@ def main() -> int:
 
     with Phase("files-xst"):
         files_xst = run_files_xst(torch, dev, xst, card)
+
+    with Phase("mesh"):
+        run_mesh(torch, dev, stack, data, card)
+
+    with Phase("examples"):
+        run_examples(torch, dev, card)
 
     if "--profile" in sys.argv[1:]:
         with Phase("profile"):

@@ -327,14 +327,21 @@ def test_batch_cli_missing_inputs_exit_2(tmp_path, capsys, monkeypatch, argv, wh
 
 
 def test_batch_cli_register_and_mesh_are_not_ported(tmp_path, monkeypatch):
-    """``--register`` is ported: a missing input exits 2 like any other run
-    (its drift removal is ``test_batch_cli_register_removes_drift``).
-    ``--mesh`` raises only where several CUDA devices are visible."""
+    """``--register`` and ``--mesh`` are both ported: a missing input exits 2
+    like any other run (the drift removal is
+    ``test_batch_cli_register_removes_drift``). ``--mesh`` builds
+    ``frame_mesh()`` over every CUDA device where two or more are visible,
+    and no mesh on the CPU."""
+    from barc4dip_tpu_torch import parallel
+
     assert batch_cli.main(["missing.h5", "--register", "first", *CPU]) == 2
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        batch_cli.main(["missing.h5", "--mesh", "--device", "cuda"])
+    built = []
+    monkeypatch.setattr(parallel, "frame_mesh", lambda: built.append(1) or "mesh")
     assert batch_cli.main(["missing.h5", "--mesh", *CPU]) == 2  # the CPU is one device
+    assert built == []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert batch_cli.main(["missing.h5", "--mesh", "--device", "cuda"]) == 2
+    assert built == [1]
 
 
 def test_batch_cli_register_removes_drift(tmp_path):

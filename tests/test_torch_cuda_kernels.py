@@ -438,3 +438,73 @@ def test_eigenvalues_float32_against_float64(dev, side, method):
     for key in ("eigenvalues", "e1", "e2", "re"):
         rel = ((got[key].double() - want[key]).abs() / want[key].abs()).max()
         assert float(rel) <= 1e-4, key
+
+
+@pytest.mark.parametrize("kernel", ["K1a", "K1b", "K2", "K3"])
+def test_launch_leaves_the_current_device(dev, kernel):
+    """Each binding switches the CUDA runtime to its tensor's device; the
+    wrapper's guard puts the caller's current device back. With two cards
+    the caller sits on cuda:1 while cuda:0 launches; with one, the current
+    device must simply stay as it was."""
+    x = _frames(dev, 2, 256)
+    before = 1 if torch.cuda.device_count() > 1 else torch.cuda.current_device()
+    torch.cuda.set_device(before)
+    try:
+        if kernel in ("K1a", "K1b"):
+            F = torch.fft.rfft2(x - x.mean(dim=(-2, -1), keepdim=True))
+            if kernel == "K1a":
+                cuda_fftp.corr_from_rfft(F, F[:, None], s=(256, 256))
+            else:
+                G = F[0, None].expand(3, *F.shape[1:]).contiguous()
+                var = torch.ones(2, 256, 256, device=dev)
+                cuda_fftp.ncc_masked_peaks(F, G, var, torch.ones(3, device=dev),
+                                           valid_hw=(200, 200), s=(256, 256))
+        elif kernel == "K2":
+            cuda_median.median3x3(x)
+        else:
+            cuda_densetrack.ncc_sums(x[0], x[1:], (20, 60), (20, 60), 17, 4)
+        assert torch.cuda.current_device() == before
+    finally:
+        torch.cuda.set_device(0)
+
+
+def test_mesh_on_one_card_leaves_the_current_device_and_matches(dev):
+    """A two-shard mesh on one card (``frame_mesh(["cuda:0", "cuda:0"])``):
+    every K1 launch runs on cuda:0, the current device is unchanged, and the
+    stack's results equal the unsharded run's within float32 round-off: the
+    metric leaves at rtol 1e-5, the trajectories at 1e-3 px (the float32
+    trajectory bound of the card check; the window variance sums come from
+    float32 integral images, whose rounding a change of batch shape on the
+    card reshuffles: 3.1e-4 px seen at 2048^2)."""
+    from barc4dip_tpu_torch import speckle_stack_stats
+    from barc4dip_tpu_torch.parallel import frame_mesh
+
+    st = speckle_stack(6, (512, 512), grain_px=6.0, mean_counts=8000.0, seed=5, dtype=np.uint16)
+    kw = dict(metrics="all", tiles=True, frame_chunk=4, verbose=False, grain_maps=False)
+    before = torch.cuda.current_device()
+    single = speckle_stack_stats(st, device=dev, **kw)
+    cuda_fftp.reset_counts()
+    sharded = speckle_stack_stats(st, mesh=frame_mesh(["cuda:0", "cuda:0"]), **kw)
+    assert torch.cuda.current_device() == before
+    # chunks of 4 frames in two shards of 2, the tail chunk one shard of 2:
+    # one K1a and two K1b a shard
+    assert cuda_fftp.LAUNCHES == {"cols": 9, "rows": 3, "rows_ncc": 6}
+    for blk in ("abs", "inc"):
+        for k in ("dx", "dy"):
+            np.testing.assert_allclose(sharded["temporal"][blk][k], single["temporal"][blk][k],
+                                       atol=1e-3)
+    for g, fields in single["full"].items():
+        for k, v in fields.items():
+            np.testing.assert_allclose(sharded["full"][g][k], v, rtol=1e-5, err_msg=f"{g}/{k}")
+
+
+def test_shard_frames_puts_each_shard_on_its_device(dev):
+    from barc4dip_tpu_torch.parallel import frame_mesh, frames_sharding, shard_frames
+
+    st = _frames(dev, 4, 128).cpu().numpy()
+    for mesh in (frame_mesh(["cuda:0", "cuda:0"]), frame_mesh()):
+        sharded = shard_frames(st, mesh)
+        assert sharded.sharding == frames_sharding(mesh)
+        assert [s.device for s in sharded.shards] == list(mesh.devices)
+        assert sharded.device_set == set(mesh.devices)
+        np.testing.assert_array_equal(torch.cat([s.cpu() for s in sharded.shards]).numpy(), st)

@@ -4,7 +4,8 @@ tiny stack at the defaults, one lazy map read, a tensor stack,
 ``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
 a focus scan, a report, an EDF written and read back, both console scripts,
 the pipelines' ``run_files``, the signal layer and the metric extensions,
-the rest of preprocessing)
+the rest of preprocessing, a sharded stack on a CPU mesh, the plotting
+package and the port's examples)
 pulls in neither jax nor the JAX package,
 and launches no kernel; its ``io`` imports with ``h5py`` and Pillow hidden.
 ``chip_smoke.py`` needs a
@@ -21,6 +22,7 @@ import sys
 sys.modules["h5py"] = sys.modules["PIL"] = None  # hidden while the port is imported
 import numpy as np
 import barc4dip_tpu_torch as port
+assert "matplotlib" not in sys.modules  # plotting is imported on first use
 import barc4dip_tpu_torch.io
 from barc4dip_tpu_torch import geometry, io, maths, metrics, models, preprocessing, report, signal
 from barc4dip_tpu_torch.geometry import crop, masks, roi
@@ -104,6 +106,24 @@ assert preprocessing.correct_distortion(stack, k1=0.01, device="cpu").shape == s
 aligned, shifts = preprocessing.register_stack(stack, reference="previous", device="cpu")
 assert aligned.shape == stack.shape and shifts["dy"][0] == 0.0
 assert preprocessing.shift_stack(stack, 1.0, 2.0, shift_mode="roll", device="cpu").shape == stack.shape
+from barc4dip_tpu_torch import parallel
+mesh = parallel.frame_mesh(["cpu", "cpu"])
+sh = port.speckle_stack_stats(stack, verbose=False, mesh=mesh)
+assert np.array_equal(sh["temporal"]["abs"]["dy"], out["temporal"]["abs"]["dy"])
+assert parallel.shard_frames(stack, mesh).sharding == parallel.frames_sharding(mesh)
+assert "matplotlib" not in sys.modules
+import matplotlib
+matplotlib.use("Agg")
+assert port.plotting.plt_image(torch.from_numpy(frame)) is not None
+assert isinstance(port.__version__, str)
+import glob, os, runpy
+os.environ["BARC4DIP_EX_FAST"] = "1"
+scripts = sorted(glob.glob("examples/cuda/ex_*.py"))
+assert len(scripts) == 8, scripts
+for path in scripts:
+    runpy.run_path(path, run_name="example")  # imports only
+ex04 = runpy.run_path("examples/cuda/ex_04_stack_tracking.py", run_name="example")
+assert ex04["main"](None, device="cpu")["err_px"] < 0.1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
 assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES

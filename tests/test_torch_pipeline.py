@@ -10,7 +10,8 @@ chunks of 2 frames).
   dB), and the abs trajectory within 0.05 px of the known motion;
 - a grid of dtypes, display origins, tiling and metric subsets with chunks
   that do not divide T (tolerances in the test);
-- ``mesh``, the one option not ported, raises.
+- ``mesh`` beside every other option: a run on a three-entry CPU mesh equals
+  the unsharded run.
 """
 import numpy as np
 import pytest
@@ -129,15 +130,28 @@ def test_tracking_grid_matches_jax(stacks):
      dict(tracking_search_radius=8.0), dict(tracking_method="phase")],
 )
 def test_uncovered_arguments_raise(stacks, kwargs, tmp_path):
-    """``mesh`` is the one option not ported: it raises, alone or beside any
-    other option, before any work (no checkpoint file is written)."""
+    """``mesh`` composes with every other option: on a three-entry CPU mesh (chunks of 3 frames, one a
+    shard) the run equals the unsharded run, and a checkpointed mesh run
+    writes chunks under its own layout."""
+    from barc4dip_tpu_torch.parallel import frame_mesh
+
     st = stacks[np.float64]
-    kw = {**KW, **kwargs, "mesh": object()}
+    kw = {**KW, **kwargs}
     if kw.get("checkpoint_dir"):
         kw["checkpoint_dir"] = tmp_path / "ckpt"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdip.speckle_stack_stats(st, device="cpu", **kw)
-    assert not (tmp_path / "ckpt").exists()
+    single = tdip.speckle_stack_stats(st, device="cpu", **{**kw, "checkpoint_dir": None})
+    sharded = tdip.speckle_stack_stats(st, device="cpu", mesh=frame_mesh(["cpu"] * 3), **kw)
+    assert (tmp_path / "ckpt").exists() == bool(kwargs.get("checkpoint_dir"))
+    for path, v in _leaves({k: single[k] for k in ("full", "tiles", "temporal") if k in single}):
+        if "qc" in path or "autocorr" in path:
+            continue
+        got = _leaves_dict(sharded)[path]
+        np.testing.assert_allclose(np.asarray(got, float), np.asarray(v, float),
+                                   rtol=1e-12, atol=1e-12, err_msg=path)
+
+
+def _leaves_dict(out):
+    return dict(_leaves({k: out[k] for k in ("full", "tiles", "temporal") if k in out}))
 
 
 def test_bad_input_raises(stacks):

@@ -181,11 +181,25 @@ def test_stack_validation_raises_as_jax(k):
         assert str(got.value) == str(want.value)
 
 
+def _leaves_of(tree):
+    return dict(_leaves(tree))
+
+
 def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tm.sharpness_stack_stats(_scan(T=2), mesh=object(), verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        t_common.run_stack_program(_scan(T=2), lambda x: {}, mesh=object(), device="cpu")
+    # a two-entry CPU mesh gives the unsharded results
+    from barc4dip_tpu_torch.parallel import frame_mesh
+
+    mesh = frame_mesh(["cpu", "cpu"])
+    kw = dict(tiles=False, verbose=False, device="cpu", frame_chunk=3)
+    single = tm.sharpness_stack_stats(_scan(T=5), **kw)
+    sharded = tm.sharpness_stack_stats(_scan(T=5), mesh=mesh, **kw)
+    for path, v in _leaves(single["full"]):
+        np.testing.assert_allclose(_leaves_of(sharded["full"])[path], v, rtol=1e-12, atol=1e-12,
+                                   err_msg=path)
+    frames = torch.from_numpy(_scan(T=5))
+    out = t_common.run_stack_program(frames, lambda x: {"s": x.sum((-2, -1))}, mesh=mesh,
+                                     frame_chunk=3, device="cpu")
+    np.testing.assert_allclose(out["s"], frames.sum((-2, -1)).numpy(), rtol=1e-12)
     # the file-driven focus scan runs: frames from disk equal frames from memory
     from barc4dip_tpu_torch.io import save_edf
 

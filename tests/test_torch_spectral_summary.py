@@ -123,8 +123,13 @@ def test_spectral_summary_stack_tensor_uint16_and_chunk_sizes_agree(rng):
 def test_spectral_summary_stack_errors():
     with pytest.raises(ValueError, match="3D"):
         t_sig.spectral_summary_stack(np.zeros((8, 8), np.float32), **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        t_sig.spectral_summary_stack(np.zeros((2, 8, 8), np.float32), mesh=object(), **CPU)
+    # under a mesh: the same curves
+    from barc4dip_tpu_torch.parallel import frame_mesh
+
+    frames = np.random.default_rng(5).random((3, 16, 16))
+    sharded = t_sig.spectral_summary_stack(frames, mesh=frame_mesh(["cpu"] * 2), frame_chunk=2, **CPU)
+    single = t_sig.spectral_summary_stack(frames, frame_chunk=2, **CPU)
+    np.testing.assert_allclose(sharded["radial_binned"], single["radial_binned"], rtol=1e-12)
     with pytest.raises(ValueError, match="dx and dy"):
         t_sig.spectral_summary_stack(np.zeros((2, 8, 8), np.float32), dx=0.0, **CPU)
 

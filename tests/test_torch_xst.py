@@ -191,11 +191,17 @@ def test_validation_and_unported_entry_points(tmp_path):
         tsignal.track_displacement_stack(a, **CPU)
     with pytest.raises(ValueError, match="ref shape"):
         tsignal.track_displacement_stack(np.zeros((2, 64, 64)), ref=a[:32], **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsignal.track_displacement_stack(np.zeros((2, 64, 64)), mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, mesh=object(), **CPU)(
-            np.zeros((2, 64, 64)))
+    # under a mesh the frames go round-robin, with the same fields
+    from barc4dip_tpu_torch.parallel import frame_mesh
+
+    frames = speckle_stack(3, (64, 64), seed=np.random.default_rng(3), dtype=np.float32)
+    kw = dict(tile_size=17, step=16, search_radius=4, **CPU)
+    meshy = tsignal.track_displacement_stack(frames, mesh=frame_mesh(["cpu"] * 2), **kw)
+    single = tsignal.track_displacement_stack(frames, **kw)
+    np.testing.assert_array_equal(meshy["dy"], single["dy"])
+    wf = tmodels.WavefrontScanPipeline(pixel_size=1e-6, distance=1.0, mesh=frame_mesh(["cpu"]),
+                                       **kw)(frames)
+    np.testing.assert_array_equal(wf["dx"], single["dx"])
     # the file-driven entry points run: frames from disk equal frames from memory
     from barc4dip_tpu_torch.io import save_edf, save_h5
 

@@ -38,8 +38,11 @@ Richardson-Lucy, unsupervised Wiener), ``clahe``, ``correct_distortion`` /
 imported on first use so that importing the package never imports
 matplotlib. Kernel
 K1 takes every H and W that are multiples of 128 up to 8192, as the TPU
-kernel does. The namespaces ``geometry``, ``maths``, ``signal``,
-``metrics`` and ``preprocessing`` export every name the JAX package's do.
+kernel does. Every module exports every name of its JAX counterpart's
+``__all__`` (``ops``, ``utils`` and ``config`` included), but the JAX
+backend probes of ``config``; ``metrics.stack_fused`` keeps the stack
+loop's per-stage record (``LAST_RUN_PERF``) and its compute probe
+(``device_compute_probe``).
 
 Work runs on the card: ``device=None`` means cuda and raises where no card
 is available; ``device="cpu"`` (``--device cpu``) asks for the CPU.

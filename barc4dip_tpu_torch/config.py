@@ -19,6 +19,7 @@ import torch
 
 __all__ = [
     "MIN_TILE_PX",
+    "SATURATION_VALUE",
     "device_array",
     "device_arrays",
     "resolve_device",
@@ -27,6 +28,7 @@ __all__ = [
 ]
 
 MIN_TILE_PX: int = 128
+SATURATION_VALUE: float = 65535.0
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

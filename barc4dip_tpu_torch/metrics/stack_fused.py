@@ -20,12 +20,19 @@ Three trackers: ``template`` over the full frame (the NCC bank through
 kernel K1b), ``template`` in per-tile windows (``search`` px around each
 tile's home; the valid NCC maps through ``cuda_fftp.corr_from_rfft``), and
 ``phase`` (whitened cross-power spectra on ``torch.fft``).
+
+Each run leaves its per-stage split in :data:`LAST_RUN_PERF`.
+:func:`device_compute_probe` runs the same per-chunk step over a stack
+made resident first, so it times the step without the uploads.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from ..config import resolve_device, to_compute, upload
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
 from ..parallel.mesh import shard_bounds
@@ -46,12 +53,27 @@ from .speckles_device import int_value_hint, speckle_device_fn
 from .tracking_batch import _extract_tiles, _grid_geometry
 
 __all__ = [
+    "LAST_RUN_PERF",
+    "device_compute_probe",
     "frame_loader",
     "pack_leaves",
     "run_fused_speckle_stack",
     "unflatten_leaves",
     "unpack_leaves",
 ]
+
+#: Per-stage split of the last :func:`run_fused_speckle_stack` call, with
+#: the JAX package's keys: ``upload_s`` (host seconds in the shards' loads
+#: of a host stack: pinning and the non-blocking copy), ``upload_io_s`` (the
+#: card's time for those copies and their casts, by CUDA events around each
+#: load, the largest sum over the devices; ``upload_s`` on the CPU),
+#: ``dispatch_s`` (host seconds enqueuing the metric and tracking steps and
+#: the result pull), ``pull_wait_s`` (host seconds waiting for and unpacking
+#: the pulled results: the device time shows here), ``upload_bytes`` (host
+#: frames uploaded, in their own dtype), ``pull_bytes``, ``chunks`` (chunks
+#: run, not loaded from a checkpoint), and ``resident: True`` for a tensor
+#: stack.
+LAST_RUN_PERF: dict = {}
 
 
 def _search_windows(H: int, W: int, s: int, starts: np.ndarray, search: int):
@@ -169,6 +191,49 @@ def _track_phase(frames, prevs, tpl0, starts, s: int, subpixel: bool, eps: float
 _TRACK_KEYS = ("dy_a", "dx_a", "dy_i", "dx_i")
 
 
+def _stack_step(H: int, W: int, grid_slices, *, groups: set, mode: str, sat, eps: float,
+                flip: bool, method: str, subpixel: bool, track_eps: float,
+                search_radius: int | None, int_range):
+    """The per-chunk step of the stack loop and of the probe: ``(bank,
+    step)``.
+
+    ``bank(frame0)`` builds the frame-0 template bank on frame0's device.
+    ``step(frames, prev, tpl0, metrics=True, tracking=True)`` gives a
+    chunk's tree of (n, ...) results: the metric tree of the frames after
+    the display-origin flip, and under ``"track"`` their four trajectories
+    against ``tpl0`` and against each frame's predecessor (``prev`` for the
+    first frame)."""
+    starts, _, s = _grid_geometry(grid_slices)
+    metric_fn = speckle_device_fn(frozenset(groups), mode, sat, eps)
+    windows = None
+    if method == "template" and search_radius is not None:
+        windows = _search_windows(H, W, s, starts, search_radius)
+    if method == "phase":
+        def track(frames, prevs, tpl0):
+            return _track_phase(frames, prevs, tpl0, starts, s, subpixel, track_eps)
+    elif windows is not None:
+        def track(frames, prevs, tpl0):
+            return _track_windowed(frames, prevs, tpl0, starts, s, windows, subpixel, track_eps)
+    else:
+        def track(frames, prevs, tpl0):
+            return _track_chunk(frames, prevs, tpl0, starts, s, subpixel, track_eps)
+
+    def bank(frame0):
+        return _build_tpl0(frame0, starts, s, H, W, method, track_eps, windows)
+
+    def step(frames, prev, tpl0, *, metrics: bool = True, tracking: bool = True) -> dict:
+        result = {}
+        if metrics:
+            shown = apply_display_origin(frames, display_origin="lower") if flip else frames
+            result = metric_fn(shown, int_range=int_range)
+        if tracking:
+            prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
+            result["track"] = dict(enumerate(track(frames, prevs, tpl0)))
+        return result
+
+    return bank, step
+
+
 def run_fused_speckle_stack(
     stack,
     grid_slices,
@@ -205,22 +270,19 @@ def run_fused_speckle_stack(
     (dx_abs, dy_abs, dx_inc, dy_inc), each (T, 3, 3) float32)."""
     placements = shard_loaders(stack, device, mesh)
     T, H, W = (int(v) for v in stack.shape)
-    starts, _, s = _grid_geometry(grid_slices)
     width = -(-chunk_width(T, frame_chunk, mesh) // len(placements))
-    hint = int_value_hint(stack.dtype)
-    metric_fn = speckle_device_fn(frozenset(groups), mode, sat, eps)
-    windows = None
-    if method == "template" and search_radius is not None:
-        windows = _search_windows(H, W, s, starts, search_radius)
-    if method == "phase":
-        def track(frames, prevs, tpl0):
-            return _track_phase(frames, prevs, tpl0, starts, s, subpixel, track_eps)
-    elif windows is not None:
-        def track(frames, prevs, tpl0):
-            return _track_windowed(frames, prevs, tpl0, starts, s, windows, subpixel, track_eps)
-    else:
-        def track(frames, prevs, tpl0):
-            return _track_chunk(frames, prevs, tpl0, starts, s, subpixel, track_eps)
+    bank, step = _stack_step(
+        H, W, grid_slices, groups=groups, mode=mode, sat=sat, eps=eps, flip=flip, method=method,
+        subpixel=subpixel, track_eps=track_eps, search_radius=search_radius,
+        int_range=int_value_hint(stack.dtype),
+    )
+    host_stack = not isinstance(stack, torch.Tensor)
+    frame_bytes = H * W * stack.dtype.itemsize if host_stack else 0
+    perf = {"upload_s": 0.0, "dispatch_s": 0.0, "pull_wait_s": 0.0, "upload_io_s": 0.0,
+            "upload_bytes": 0, "pull_bytes": 0, "chunks": 0}
+    if not host_stack:
+        perf["resident"] = True
+    copies: dict = {}  # device -> [(start, end)]: CUDA events around each chunk upload
 
     track_out = np.empty((4, T, 9), np.float32)  # dy_a, dx_a, dy_i, dx_i
     pieces: dict[int, dict] = {}
@@ -234,7 +296,9 @@ def run_fused_speckle_stack(
         track_out[:, c0:c1] = tr
 
     def collect(c0, c1, shards):
+        t0 = time.perf_counter()
         out = chunk_from_shards(shards)
+        perf["pull_wait_s"] += time.perf_counter() - t0
         tr = np.stack([out.pop(f"track\0{i}") for i in range(4)])
         if checkpoint is not None:
             checkpoint.save(c0, {"metrics": unflatten_leaves(out), "track": dict(zip(_TRACK_KEYS, tr))})
@@ -257,23 +321,133 @@ def run_fused_speckle_stack(
             if a == b:  # the tail chunk leaves the last shards empty
                 continue
             if dev not in tpl0:
-                tpl0[dev] = _build_tpl0(frame0.to(dev), starts, s, H, W, method, track_eps, windows)
+                tpl0[dev] = bank(frame0.to(dev))
+            timed_copy = host_stack and dev.type == "cuda"
+            if timed_copy:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record(torch.cuda.current_stream(dev))
+            t0 = time.perf_counter()
             frames = load(a, b)
-            shown = apply_display_origin(frames, display_origin="lower") if flip else frames
-            result = metric_fn(shown, int_range=hint)
-            prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
-            result["track"] = dict(enumerate(track(frames, prevs, tpl0[dev])))
+            t1 = time.perf_counter()
+            if timed_copy:
+                ev[1].record(torch.cuda.current_stream(dev))
+                copies.setdefault(dev, []).append(ev)
+            if host_stack:
+                perf["upload_s"] += t1 - t0
+                perf["upload_bytes"] += (b - a) * frame_bytes
+            result = step(frames, prev, tpl0[dev])
             prev = frames[-1]
             # one vector per shard leaves the device
             flat, spec = pack_leaves(result, b - a, frames.dtype)
             shards.append((*pull_to_host(flat, dev), spec))
+            perf["dispatch_s"] += time.perf_counter() - t1
+            perf["pull_bytes"] += flat.numel() * flat.element_size()
+        perf["chunks"] += 1
         if pending is not None:
             collect(*pending)
         pending = (c0, c1, shards)
     if pending is not None:
         collect(*pending)
+    if copies:  # every copy precedes a result pull that collect waited for
+        perf["upload_io_s"] = max(sum(a.elapsed_time(b) for a, b in evs) for evs in copies.values()) / 1e3
+    else:
+        perf["upload_io_s"] = perf["upload_s"]
+    LAST_RUN_PERF.clear()
+    LAST_RUN_PERF.update(perf)
 
     ordered = [pieces[c0] for c0 in sorted(pieces)]
     metrics = {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
     dy_a, dx_a, dy_i, dx_i = (a.reshape(T, 3, 3) for a in track_out)
     return unflatten_leaves(metrics), (dx_a, dy_a, dx_i, dy_i)
+
+
+def _probed_frames(T: int, H: int, W: int, frame_chunk: int, itemsize: int) -> int:
+    """Frames the probe holds resident: at most 2 GiB of compute-dtype
+    frames (never less than one chunk), rounded down to a multiple of the
+    chunk B = min(frame_chunk, T)."""
+    B = max(1, min(int(frame_chunk), T))
+    cap = max(B, (2 << 30) // (H * W * itemsize) // B * B)
+    return min(T, cap) // B * B
+
+
+def device_compute_probe(
+    stack,
+    grid_slices,
+    *,
+    groups: set,
+    mode: str,
+    sat: float | None,
+    eps: float,
+    flip: bool,
+    method: str = "template",
+    subpixel: bool = True,
+    track_eps: float = 1e-9,
+    frame_chunk: int = 4,
+    search_radius: int | None = None,
+    device=None,
+) -> dict:
+    """Throughput of the stack loop's per-chunk step with no uploads.
+
+    The probed frames are made resident first, in their compute dtype: a
+    host stack is uploaded to ``device`` (``None`` means the card), a tensor
+    stack stays on its own device. At most 2 GiB of them are probed, and
+    their count is rounded down to a multiple of B = min(``frame_chunk``,
+    T), as in the JAX package. One warm pass builds the kernels and the FFT
+    plans; then three passes over the chunks are timed on the host clock:
+    metrics and tracking, metrics alone, tracking alone. Each pass keeps
+    every chunk's packed results on the device and ends with one pull of
+    them and a synchronize.
+
+    On the card every chunk step still pays its launches from Python, so
+    this is not a device-only time where the loop is launch-bound.
+
+    Returns {"elapsed_s", "metrics_only_s", "tracking_only_s", "frames",
+    "mpix_s"}; raises ``RuntimeError`` if the tracking is not finite."""
+    T, H, W = (int(v) for v in stack.shape)
+    is_tensor = isinstance(stack, torch.Tensor)
+    f64 = stack.dtype == (torch.float64 if is_tensor else np.float64)
+    T = _probed_frames(T, H, W, frame_chunk, 8 if f64 else 4)
+    B = max(1, min(int(frame_chunk), T))
+    if is_tensor:
+        frames = to_compute(stack[:T])
+    else:
+        frames = upload(np.asarray(stack[:T]), resolve_device(device))
+    bank, step = _stack_step(
+        H, W, grid_slices, groups=groups, mode=mode, sat=sat, eps=eps, flip=flip, method=method,
+        subpixel=subpixel, track_eps=track_eps, search_radius=search_radius,
+        int_range=int_value_hint(stack.dtype),
+    )
+
+    def run_all(*, metrics: bool = True, tracking: bool = True):
+        tpl0 = bank(frames[0]) if tracking else None
+        prev = frames[0]  # the predecessor of frame 0 is frame 0 itself
+        flats = []
+        for c0 in chunk_layout_signature(T, B):
+            chunk = frames[c0 : c0 + B]
+            flat, spec = pack_leaves(step(chunk, prev, tpl0, metrics=metrics, tracking=tracking),
+                                     B, frames.dtype)
+            flats.append(flat)
+            prev = chunk[-1]
+        host = torch.cat(flats).cpu()
+        if frames.device.type == "cuda":
+            torch.cuda.synchronize(frames.device)
+        return unpack_leaves(host.numpy(), [(p, (T, *shape[1:])) for p, shape in spec])
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        out = run_all(**kw)
+        return time.perf_counter() - t0, out
+
+    run_all()  # warm: builds the kernels and the FFT plans
+    elapsed, out = timed()
+    metrics_s, _ = timed(tracking=False)
+    tracking_s, _ = timed(metrics=False)
+    if not all(np.all(np.isfinite(out[f"track\0{i}"])) for i in range(4)):
+        raise RuntimeError("device_compute_probe: non-finite tracking output")
+    return {
+        "elapsed_s": elapsed,
+        "metrics_only_s": metrics_s,
+        "tracking_only_s": tracking_s,
+        "frames": T,
+        "mpix_s": (T * H * W / 1e6) / elapsed if elapsed > 0 else float("inf"),
+    }

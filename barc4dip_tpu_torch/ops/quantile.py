@@ -18,8 +18,9 @@ __all__ = ["median_exact", "nanmedian_exact", "nanpercentiles_exact", "nanquanti
 
 def nanquantiles_exact(x, qs: tuple[float, ...], *, integer_range=None):
     """Linear-interpolation quantiles (q in [0, 1]) over the last two axes
-    of ``x`` (..., H, W), excluding NaNs; infinities are ranked. Returns
-    (..., len(qs)) in x's dtype; an all-NaN image gives NaN. Equal order
+    of ``x`` (..., H, W), or over all of a 1-D ``x``, excluding NaNs;
+    infinities are ranked. Returns (..., len(qs)) in x's dtype; an all-NaN
+    image gives NaN. Equal order
     statistics return that value (an infinite one stays infinite).
 
     ``integer_range=(lo, hi)`` is accepted for API parity (the TPU build
@@ -32,7 +33,7 @@ def nanquantiles_exact(x, qs: tuple[float, ...], *, integer_range=None):
                 "integer_range must satisfy lo <= hi with span/magnitude "
                 "< 2^24 (float32-exact thresholds)"
             )
-    x = x.flatten(-2)
+    x = x.flatten(-2) if x.dim() >= 2 else x.reshape(-1)
     nan = torch.isnan(x)
     n = (~nan).sum(-1)
     # NaNs sort past every ranked value: the first n entries are the ranked ones

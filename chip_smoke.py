@@ -56,6 +56,18 @@ Phases, one line each with its wall time:
 6. resident: the stack as a CUDA tensor, run twice, the second counted and
    timed (MP/s): K1b launches, every leaf against the host stack's counted
    run, exactly;
+6a. probe: ``metrics.stack_fused.device_compute_probe`` at Config D's
+   settings (all groups, 9x9 subtiles, template tracking, ``frame_chunk``
+   4) on the 16 frames as numpy and as a CUDA tensor: ``elapsed_s``, the
+   metrics-only and tracking-only seconds, ``frames`` (all 16) and MP/s,
+   beside the card's state and its ratio to the resident counted run's
+   MP/s; K1a and K1b launched in the probe, no plain shape but the
+   subtiles'; the tensor probe once more under torch.profiler: the card's
+   busy time a full pass against the probe's ``elapsed_s`` (is the probe
+   a device-only number?). After the counted host and resident runs (phases 4 and 6)
+   ``LAST_RUN_PERF`` is logged with other_s = elapsed - upload_s -
+   dispatch_s - pull_wait_s (host run: 4 chunks, the stack's bytes
+   uploaded; resident run: ``resident``, no bytes uploaded);
 7. options, on frames 0-7: ``tracking_search_radius=16`` (the search area,
    trajectories within 1e-3 px of the full search, the 0.05 px gate,
    ``PLAIN_BY_SHAPE`` growing only by the window shape); phase tracking
@@ -691,9 +703,13 @@ def run_slice(torch, dev, stack, card: str) -> dict:
     log(f"slice end to end: first run {cold_s:.3f} s, counted run {warm_s:.3f} s = "
         f"{T / warm_s:.2f} frames/s = {mp / warm_s:.2f} MP/s "
         f"({T} x {H}x{W} uint16, frame_chunk {FRAME_CHUNK}; {card})")
+    perf = log_run_perf("host stack", warm_s, card)
+    chunks = -(-T // FRAME_CHUNK)
+    if perf["chunks"] != chunks or perf["upload_bytes"] != stack.nbytes or "resident" in perf:
+        raise AssertionError(f"LAST_RUN_PERF of the host run: {perf}; want {chunks} chunks, "
+                             f"upload_bytes {stack.nbytes}")
 
     # a chunk: one K1a for its full-frame grain, two K1b (abs, inc); maps unread
-    chunks = -(-T // FRAME_CHUNK)
     want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}
     if launches != want:
         raise AssertionError(f"K1 launches {launches} != {want} on the main path")
@@ -878,6 +894,9 @@ def run_resident(torch, dev, stack, host_out: dict, card: str) -> dict:
     T, H, W = stack.shape
     log(f"resident stack ({T} x {H}x{W} {st.dtype} on the card): counted run {warm_s:.3f} s = "
         f"{T * H * W / 1e6 / warm_s:.2f} MP/s end to end; K1 launches {json.dumps(launches)}; {card}")
+    perf = log_run_perf("resident stack", warm_s, card)
+    if perf.get("resident") is not True or perf["upload_bytes"] != 0:
+        raise AssertionError(f"LAST_RUN_PERF of the resident run: {perf}")
     if not (launches["rows_ncc"] > 0 and set(plain) <= subtile_plain_keys(H, W)):
         raise AssertionError(f"resident run: K1 launches {launches}, plain {sorted(plain)}")
     worst, d = max_leaf_diff(out, host_out)
@@ -887,6 +906,69 @@ def run_resident(torch, dev, stack, host_out: dict, card: str) -> dict:
     if d != 0.0 or map_d != 0.0:
         raise AssertionError(f"resident run differs from the host-stack run: {worst} {d:.3e}, map {map_d:.3e}")
     return {"launches": launches, "warm_s": warm_s}
+
+
+def log_run_perf(label: str, elapsed_s: float, card: str) -> dict:
+    """Log ``stack_fused.LAST_RUN_PERF`` of the run just made, with the rest
+    of its time as ``bench.py`` forms it: other_s = elapsed - upload_s -
+    dispatch_s - pull_wait_s."""
+    from barc4dip_tpu_torch.metrics import stack_fused
+
+    perf = dict(stack_fused.LAST_RUN_PERF)
+    other = elapsed_s - perf["upload_s"] - perf["dispatch_s"] - perf["pull_wait_s"]
+    log(f"LAST_RUN_PERF, {label}: elapsed {elapsed_s:.4f} s = upload_s {perf['upload_s']:.4f} + "
+        f"dispatch_s {perf['dispatch_s']:.4f} + pull_wait_s {perf['pull_wait_s']:.4f} + other_s "
+        f"{other:.4f}; upload_io_s {perf['upload_io_s']:.4f}, upload_bytes {perf['upload_bytes']}, "
+        f"pull_bytes {perf['pull_bytes']}, chunks {perf['chunks']}"
+        f"{', resident' if perf.get('resident') else ''}; {card}")
+    return perf
+
+
+def run_probe(torch, dev, stack, resident_s: float, card: str) -> None:
+    """``device_compute_probe`` at Config D's settings (all groups, 9x9
+    subtiles, template tracking, ``frame_chunk`` 4) on the stack as numpy
+    and as a CUDA tensor: its MP/s and split beside the resident counted
+    run's end-to-end MP/s; K1 launched inside the probe; then the tensor
+    probe once more under torch.profiler, for the card's busy share."""
+    from barc4dip_tpu_torch.config import MIN_TILE_PX, SATURATION_VALUE
+    from barc4dip_tpu_torch.metrics.common import choose_tiling_mode
+    from barc4dip_tpu_torch.metrics.speckles import _ALL_SPECKLE_GROUPS, tracking_grid_from_frame0
+    from barc4dip_tpu_torch.metrics.stack_fused import device_compute_probe
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    T, H, W = stack.shape
+    mode, _ = choose_tiling_mode(H, W, tiles=True, min_tile_px=MIN_TILE_PX)
+    grid = tracking_grid_from_frame0(stack)[0]
+    kw = dict(groups=set(_ALL_SPECKLE_GROUPS), mode=mode, sat=SATURATION_VALUE, eps=1e-6, flip=True,
+              method="template", subpixel=True, frame_chunk=FRAME_CHUNK)
+    resident_mpix = T * H * W / 1e6 / resident_s
+    tensor = torch.from_numpy(stack).to(dev)
+    for label, st in (("numpy", stack), ("tensor", tensor)):
+        log(f"probe ({label}) starts: card state {card_state()}")
+        cuda_fftp.reset_counts()
+        probe = device_compute_probe(st, grid, device=dev, **kw)
+        launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        log(f"probe ({label}, {T} x {H}x{W} {stack.dtype}, mode {mode}): elapsed_s {probe['elapsed_s']:.4f}, "
+            f"metrics_only_s {probe['metrics_only_s']:.4f}, tracking_only_s {probe['tracking_only_s']:.4f}, "
+            f"frames {probe['frames']}, mpix_s {probe['mpix_s']:.2f}; {probe['mpix_s'] / resident_mpix:.3f}x "
+            f"the resident counted run's {resident_mpix:.2f} MP/s end to end; K1 launches in the probe's "
+            f"warm and three timed passes {json.dumps(launches)}; card state {card_state()}; {card}")
+        if probe["frames"] != T or not (np.isfinite(probe["mpix_s"]) and probe["mpix_s"] > 0):
+            raise AssertionError(f"probe ({label}): {probe}")
+        if not (launches["rows"] > 0 and launches["rows_ncc"] > 0 and set(plain) <= subtile_plain_keys(H, W)):
+            raise AssertionError(f"probe ({label}): K1 launches {launches}, plain {sorted(plain)}")
+
+    # the device's share: the probe's warm and first timed passes run the full
+    # step, the other two its halves, so its device work is three full passes
+    wall, busy_ms, n, _ = profile_run(torch, lambda: device_compute_probe(tensor, grid, device=dev, **kw))
+    if busy_ms == 0.0:  # an informational reading: the checks above stand without it
+        log(f"probe (tensor) under torch.profiler: no device time recorded ({n} kernels); busy share not measured")
+        return
+    pass_ms, elapsed_ms = busy_ms / 3, probe["elapsed_s"] * 1e3  # the tensor probe's, above
+    log(f"probe (tensor) under torch.profiler: device busy {busy_ms:.1f} ms in {n} kernels and copies "
+        f"over its four passes (wall {wall * 1e3:.1f} ms, profiler on) = {pass_ms:.1f} ms a full pass = "
+        f"{T * H * W / 1e6 / (pass_ms / 1e3):.2f} MP/s were the card never idle; the probe's elapsed_s "
+        f"{elapsed_ms:.1f} ms: busy {pass_ms / elapsed_ms:.1%}; {card}")
 
 
 def make_phase_stack() -> np.ndarray:
@@ -1258,9 +1340,9 @@ def profile_slice(torch, dev, stack) -> None:
     profiled(torch, "slice", lambda: port.speckle_stack_stats(stack, **kw))
 
 
-def profiled(torch, label: str, fn) -> None:
-    """Run ``fn`` once under torch.profiler: wall time, device busy time and
-    the device time by op and kernel."""
+def profile_run(torch, fn):
+    """``fn`` run once under torch.profiler: (wall s with the profiler on,
+    device busy ms, kernels and copies, the profiler's key averages)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1272,9 +1354,16 @@ def profiled(torch, label: str, fn) -> None:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    dev_us = sum(e.self_device_time_total for e in kernels)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return wall, busy_ms, sum(e.count for e in kernels), events
+
+
+def profiled(torch, label: str, fn) -> None:
+    """Run ``fn`` once under torch.profiler: wall time, device busy time and
+    the device time by op and kernel."""
+    wall, busy_ms, n, events = profile_run(torch, fn)
     log(f"profiled {label}: wall {wall * 1e3:.1f} ms (profiler on), device busy "
-        f"{dev_us / 1e3:.1f} ms in {sum(e.count for e in kernels)} kernels and copies")
+        f"{busy_ms:.1f} ms in {n} kernels and copies")
     log(events.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
 
 
@@ -2826,6 +2915,9 @@ def main() -> int:
 
     with Phase("resident"):
         resident = run_resident(torch, dev, stack, res["out"], card)
+
+    with Phase("probe"):
+        run_probe(torch, dev, stack, resident["warm_s"], card)
 
     with Phase("options"):
         options = run_options(torch, dev, stack, card)

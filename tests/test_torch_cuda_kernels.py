@@ -508,3 +508,36 @@ def test_shard_frames_puts_each_shard_on_its_device(dev):
         assert [s.device for s in sharded.shards] == list(mesh.devices)
         assert sharded.device_set == set(mesh.devices)
         np.testing.assert_array_equal(torch.cat([s.cpu() for s in sharded.shards]).numpy(), st)
+
+
+def test_last_run_perf_times_the_uploads_on_the_card(dev):
+    """A host stack's chunk copies are timed by CUDA events (``upload_io_s``)
+    and counted in their own dtype; a CUDA tensor stack uploads nothing."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.metrics import stack_fused
+
+    stack = speckle_stack(8, (256, 256), grain_px=8.0, mean_counts=8000.0, seed=11, dtype=np.uint16)
+    kw = dict(metrics="all", tiles=False, frame_chunk=4, verbose=False, grain_maps=False)
+    host = port.speckle_stack_stats(stack, device=dev, **kw)
+    perf = dict(stack_fused.LAST_RUN_PERF)
+    assert perf["chunks"] == 2 and perf["upload_bytes"] == stack.nbytes and "resident" not in perf
+    assert 0.0 < perf["upload_io_s"] and perf["upload_s"] > 0.0
+    resident = port.speckle_stack_stats(torch.from_numpy(stack).to(dev), **kw)
+    perf = dict(stack_fused.LAST_RUN_PERF)
+    assert perf["resident"] is True and perf["upload_bytes"] == 0 and perf["upload_io_s"] == 0.0
+    np.testing.assert_array_equal(resident["temporal"]["abs"]["dy"], host["temporal"]["abs"]["dy"])
+
+
+@pytest.mark.parametrize("tensor", [False, True])
+def test_probe_launches_k1_on_the_card(dev, tensor):
+    from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
+    from barc4dip_tpu_torch.metrics.stack_fused import device_compute_probe
+
+    stack = speckle_stack(8, (256, 256), grain_px=8.0, mean_counts=8000.0, seed=11, dtype=np.uint16)
+    st = torch.from_numpy(stack).to(dev) if tensor else stack
+    cuda_fftp.reset_counts()
+    out = device_compute_probe(st, tracking_grid_from_frame0(stack)[0], groups={"amplitude", "grain", "stats"},
+                               mode="off", sat=65535.0, eps=1e-6, flip=True, frame_chunk=4, device=dev)
+    assert out["frames"] == 8 and np.isfinite(out["mpix_s"]) and out["mpix_s"] > 0
+    # warm + three timed passes of 2 chunks: K1a in the three with metrics, two K1b in the three with tracking
+    assert cuda_fftp.LAUNCHES["rows"] == 3 * 2 and cuda_fftp.LAUNCHES["rows_ncc"] == 3 * 2 * 2

@@ -15,7 +15,7 @@ from barc4dip_tpu import geometry as j_geo
 from barc4dip_tpu_torch import geometry as t_geo
 
 
-@pytest.mark.parametrize("namespace", ["signal", "maths", "geometry", "metrics"])
+@pytest.mark.parametrize("namespace", ["signal", "maths", "geometry", "metrics", "ops", "utils"])
 def test_public_namespace_exports_every_jax_name(namespace):
     import barc4dip_tpu.metrics  # noqa: F401 - a lazy submodule of the JAX package
 
@@ -25,6 +25,44 @@ def test_public_namespace_exports_every_jax_name(namespace):
     for name in port.__all__:
         assert callable(getattr(port, name)), name
     assert namespace in tdip.__all__
+
+
+def test_config_exports_the_saturation_value():
+    from barc4dip_tpu import config as j_config
+    from barc4dip_tpu_torch import config as t_config
+
+    assert "SATURATION_VALUE" in t_config.__all__
+    assert t_config.SATURATION_VALUE == j_config.SATURATION_VALUE == 65535.0
+    assert isinstance(t_config.SATURATION_VALUE, float)
+
+
+# the JAX package's modules that are TPU workarounds, and the JAX backend
+# probes of its config (ROADMAP "Not to port")
+_NOT_TO_PORT = ("barc4dip_tpu.ops.mxufft", "barc4dip_tpu.ops.uploadcache", "barc4dip_tpu.ops.pallas_")
+_CONFIG_PROBES = ["default_float", "is_x64_enabled", "on_tpu"]
+
+
+def test_every_jax_module_name_resolves_in_the_port():
+    """Every name of every JAX module's ``__all__`` resolves in the port's
+    module of the same path, but for the three JAX backend probes of
+    ``config``."""
+    import importlib
+    import pkgutil
+
+    modules = ["barc4dip_tpu"] + [
+        m.name for m in pkgutil.walk_packages(jdip.__path__, "barc4dip_tpu.")
+        if not m.name.startswith(_NOT_TO_PORT)
+    ]
+    missing = {}
+    for name in modules:
+        names = getattr(importlib.import_module(name), "__all__", None)
+        if names is None:
+            continue
+        port = importlib.import_module(name.replace("barc4dip_tpu", "barc4dip_tpu_torch", 1))
+        gone = [n for n in names if not hasattr(port, n)]
+        if gone:
+            missing[name] = gone
+    assert missing == {"barc4dip_tpu.config": _CONFIG_PROBES}
 
 
 def test_package_names_the_jax_packages_namespaces():

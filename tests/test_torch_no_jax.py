@@ -4,8 +4,9 @@ tiny stack at the defaults, one lazy map read, a tensor stack,
 ``speckle_stats``, ``full_step_fn``, a tiny XST scan, the sharpness calls,
 a focus scan, a report, an EDF written and read back, both console scripts,
 the pipelines' ``run_files``, the signal layer and the metric extensions,
-the rest of preprocessing, a sharded stack on a CPU mesh, the plotting
-package and the port's examples)
+the rest of preprocessing, a sharded stack on a CPU mesh, the ``ops`` and
+``utils`` exports, the stack loop's record and its compute probe, the
+plotting package and the port's examples)
 pulls in neither jax nor the JAX package,
 and launches no kernel; its ``io`` imports with ``h5py`` and Pillow hidden.
 ``chip_smoke.py`` needs a
@@ -111,6 +112,16 @@ mesh = parallel.frame_mesh(["cpu", "cpu"])
 sh = port.speckle_stack_stats(stack, verbose=False, mesh=mesh)
 assert np.array_equal(sh["temporal"]["abs"]["dy"], out["temporal"]["abs"]["dy"])
 assert parallel.shard_frames(stack, mesh).sharding == parallel.frames_sharding(mesh)
+from barc4dip_tpu_torch import config, ops
+from barc4dip_tpu_torch.metrics import stack_fused
+from barc4dip_tpu_torch.utils import to_uint16
+assert ops.zscore2d(torch.from_numpy(frame)).shape == frame.shape and config.SATURATION_VALUE == 65535.0
+assert to_uint16(frame, device="cpu").dtype == np.uint16
+assert stack_fused.LAST_RUN_PERF["chunks"] == 1 and stack_fused.LAST_RUN_PERF["upload_bytes"] == stack.nbytes
+grid = metrics.tracking_grid_from_frame0(stack)[0]
+probe = stack_fused.device_compute_probe(stack, grid, groups={"amplitude", "stats"}, mode="off", sat=65535.0,
+                                         eps=1e-12, flip=False, frame_chunk=2, device="cpu")
+assert probe["frames"] == 2 and probe["mpix_s"] > 0
 assert "matplotlib" not in sys.modules
 import matplotlib
 matplotlib.use("Agg")

@@ -18,18 +18,32 @@
 // side runs code with its length, T and block shape constant (the code K1
 // had before it took odd sides), an odd one (a <= 11, m <= 63) the
 // runtime-length code with one direct odd stage (stockham_fft.cuh). A
-// transform of length n is held by T = n/16 threads.
+// transform of length n is held by T = n/16 threads. Pass 1 above 2048 rows
+// is instantiated per (log2 of L's power-of-two part, ODD, Q): 7 kernels.
 //
-// Pass 1, corr_cols_inverse<a, ODD>: one block per (plane o, C adjacent columns
-//   k < W/2), C = min(1024/T, 64) with T = H/16, so C*T <= 1024 threads
-//   (C >= 2 at every H <= 8192). Forms F*conj(G) while loading, runs the
-//   inverse FFT of length H down each column, writes the complex mid plane
-//   (NB, H, W/2). Where C does not divide W/2 (H = 1536: T = 96, C = 10)
-//   the last block's columns past W/2 load zeros and store nothing. Columns
-//   0 and W/2 only need the real part of their column inverse (numpy drops
-//   the imaginary parts of the DC and Nyquist bins after it), so they share
-//   slot 0: Z[m] = Hm(X_0)[m] + i*Hm(X_W/2)[m], Hm(X)[m] = (X[m] +
-//   conj(X[-m]))/2, whose inverse is Re(Y_0) + i*Re(Y_W/2).
+// Pass 1 forms F*conj(G) while loading, runs the inverse FFT of length H
+//   down each column k < W/2 and writes the complex mid plane (NB, H, W/2).
+//   Columns 0 and W/2 only need the real part of their column inverse
+//   (numpy drops the imaginary parts of the DC and Nyquist bins after it),
+//   so they share slot 0: Z[m] = Hm(X_0)[m] + i*Hm(X_W/2)[m], Hm(X)[m] =
+//   (X[m] + conj(X[-m]))/2, whose inverse is Re(Y_0) + i*Re(Y_W/2). A static
+//   route by H, no fallback:
+// Pass 1 up to 2048 rows, corr_cols_inverse<a, ODD>: one block per (plane o,
+//   C adjacent columns), C = min(1024/T, 64) with T = H/16, so C*T <= 1024
+//   threads (C >= 8 at every H <= 2048). Where C does not divide W/2
+//   (H = 1536: T = 96, C = 10) the last block's columns past W/2 load zeros
+//   and store nothing.
+// Pass 1 above 2048 rows, corr_cols_cluster<logl, ODD, Q, kCC>: there a
+//   column of length H fills H/16 threads, so a block of 1024 would hold
+//   C = 1024/(H/16) <= 5 columns (2 at 8192) and touch 16-40 B of each
+//   spectrum and mid-plane row. Instead a thread-block cluster of Q blocks
+//   owns kCC = 8 adjacent columns (64 B of each row) and splits H = Q * L
+//   (Q = 16 where L = H/16 is a multiple of 16, else 8): each block
+//   transforms the rows of one residue mod Q at length L on the Stockham
+//   core, and the blocks combine their results through distributed shared
+//   memory with one Q-point DFT a value (the algebra above
+//   corr_cols_cluster). The spectra are still read once and the mid plane
+//   written once.
 // Pass 2, corr_rows_c2r<a, ODD, false>: one block per (plane o, P row pairs),
 //   P = max(1, 256/T) with T = W/16, P*T threads (at most 512). Where P
 //   does not divide H/2 the last block's pairs past H load zeros and store
@@ -48,15 +62,20 @@
 //   exactly the row-major first-occurrence argmax. Peak columns are int32
 //   (the TPU kernel stores flat indices in f32, exact only below 2^24
 //   pixels).
-// In both passes the grid is (K, groups, NF), template index fastest: the K
-// blocks that read one image's spectrum rows (pass 1) or variance rows
-// (pass 2') run together and share them through L2.
+// In both passes the grid is (K, groups, NF), template index fastest (on
+// the cluster route (Q*K, groups, NF), a cluster of Q blocks for each
+// template): the K blocks or clusters that read one image's spectrum rows
+// (pass 1) or variance rows (pass 2') run together and share them through
+// L2.
 //
 // Covered: float32 (complex64 spectra), H and W = 128*k, k = 1..64: the
 // shapes barc4dip_tpu/ops/pallas_fftp.supported takes. Shared memory: at
 // most C*T = 1024 threads' padded exchange slots (139,264 B) plus a twiddle
-// table of at most 8,176 entries (65,408 B) in pass 1, 204,672 B in all,
-// under the 232,448 B a block may opt into.
+// table of at most 8,176 entries (65,408 B) in pass 1 up to 2048 rows,
+// 204,672 B in all, under the 232,448 B a block may opt into; on the
+// cluster route kCC padded columns of length L <= 1008 plus L's stage
+// twiddles, at most 76,608 B a block (the H cross twiddles stay in global
+// memory, read once a value).
 //
 // What bounds it on Hopper. At 2048^2 a plane is 16.8 MB of float32 output
 // and 16.8 MB of complex mid plane (2048 x 1024 x 8 B), and each spectrum
@@ -74,7 +93,13 @@
 // registers and spills), so a pass-1 block of 1024 threads (32 warps) fills
 // an SM. Pass 1
 // is then bound by its strided reads (32-64 B of each spectrum row a block,
-// rows 8 B out of 32-byte alignment) and pass 2 by its row traffic; the NCC
+// rows 8 B out of 32-byte alignment; TMA cannot load them: the row pitch,
+// (W/2+1)*8 B, is not a multiple of 16) and pass 2 by its row traffic. Above
+// 2048 rows that bound fell to 16-40 B a row (C = 2..5): the cluster route
+// reads 64 B of each row, and its blocks are small (kCC*L/16 <= 504
+// threads, 64 registers), so several share an SM and one block's loads
+// overlap another's transforms and cluster barriers (chip measurements in
+// PERF.md, plans compared by k1_passes.py --variants). The NCC
 // epilogue and the peak reduction ride pass 2 so the map is never re-read
 // for its argmax. At B = 1 the mid plane stays in L2 and pass 2 is no
 // faster a plane than at B = 4, where it does not: keeping pass 1 and 2
@@ -86,6 +111,7 @@
 // tolerance (a single TF32 or bf16 pass is the ~4e-3 error class that
 // barc4dip_tpu/ops/mxufft.py records for the TPU's bf16 DFT).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -102,6 +128,14 @@ constexpr int kRowThreads = 256;     // pass 2 block, while T = W/16 <= 256
 constexpr int kRowMaxThreads = 512;  // T at W = 8192 (and up to 504 at W = 8064)
 constexpr int kMinLog = 7, kMaxLog = 13;
 constexpr int kMaxSide = 8192;
+// pass 1 above this many rows takes the cluster route (corr_cols_cluster),
+// kCC adjacent columns a cluster
+constexpr int kClusterAbove = 2048;
+constexpr int kCC = 8;
+
+// blocks a cluster of the route at H rows: 16 (above the portable 8) where
+// L = H/16 is a multiple of 16, as the Stockham core needs, else 8
+__host__ __device__ constexpr int cluster_ranks(int h) { return h % 256 == 0 ? 16 : 8; }
 
 // a * conj(b)
 __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
@@ -198,6 +232,96 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) Mp[(t + i * T) * Wq + k] = v[i];
   }
+}
+
+// Pass 1 above 2048 rows, corr_cols_cluster<LOGL, ODD, Q, CC>. H = Q * L,
+// input row n = j + Q*n2 (j < Q, n2 < L), output row k2 + L*k1 (k2 < L,
+// k1 < Q):
+//   y[k2 + L*k1] = sum_j wQ^(j*k1) * [wH^(j*k2) * Z_j[k2]],
+//   Z_j[k2] = sum_n2 x[j + Q*n2] * wL^(n2*k2),   w_N = exp(+2*pi*i/N).
+// A cluster of Q blocks owns CC adjacent columns of one plane. Rank j loads
+// rows j + Q*n2 of them (CC*8 bytes of each row), forms the product (and
+// slot 0's Hermitian packing) while loading, runs the length-L transforms on
+// the Stockham core (odd factor included, T = L/16 threads a column, CC*T
+// threads a block), multiplies by the cross twiddle wH^(j*k2) and leaves
+// Z'_j[k2] in its shared memory. After a cluster barrier rank j combines k2
+// in [j*L/Q, (j+1)*L/Q), 16/Q of them a thread: the Q values Z'_0..Q-1[k2]
+// read from the ranks' shared memory, one Q-point DFT in registers, Q
+// mid-plane rows written CC columns at a time.
+// __launch_bounds__(kColThreads) holds a thread to 64 registers, so several
+// blocks share an SM: more registers removed the ODD kernels' spills but
+// read slower (k1_passes.py --variants). CC is kCC on the dispatched route.
+template <int LOGL, bool ODD, int Q, int CC>
+__global__ void __launch_bounds__(kColThreads)
+corr_cols_cluster(const float2* __restrict__ F, const float2* __restrict__ G,
+                  float2* __restrict__ mid, const float2* __restrict__ tw, int m, int W,
+                  int K, int g_shared) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int L = ODD ? m << LOGL : 1 << LOGL;
+  const int H = Q * L;
+  const int T = L / kPer;
+  const int ntw = stockham::tw_count(LOGL, ODD ? m : 1);
+  extern __shared__ float2 sm[];
+  float2* stw = sm + CC * stockham::padded(L);
+  stockham::load_twiddles(stw, tw, ntw);
+  const float2* __restrict__ twx = tw + ntw;  // wH^r, r < H
+
+  const int j = static_cast<int>(cluster.block_rank());
+  const int c = threadIdx.x % CC;
+  const int t = threadIdx.x / CC;
+  const int f = blockIdx.z;
+  const int kt = blockIdx.x / Q;
+  const int o = f * K + kt;
+  const int g = g_shared ? kt : o;
+  const int Wh = W / 2 + 1;
+  const int Wq = W / 2;
+  const int k = blockIdx.y * CC + c;  // CC divides W/2 = 64*k'
+  const float2* Fp = F + f * static_cast<size_t>(H) * Wh;
+  const float2* Gp = G + g * static_cast<size_t>(H) * Wh;
+
+  float2 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = (j + Q * (t + i * T)) * Wh + k;  // a plane has < 2^31 entries
+    v[i] = cmul_conj(Fp[e], Gp[e]);
+  }
+  if (k == 0) {  // slot 0: the Hermitian parts of columns 0 and W/2, row -n
+    // lies in another rank, so its products are loaded again here
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int n = j + Q * (t + i * T);
+      const int r = (n == 0 ? 0 : H - n) * Wh;
+      const float2 b = cmul_conj(Fp[r], Gp[r]);
+      const float2 cn = cmul_conj(Fp[n * Wh + Wq], Gp[n * Wh + Wq]);
+      const float2 d = cmul_conj(Fp[r + Wq], Gp[r + Wq]);
+      const float2 p = make_float2(0.5f * (v[i].x + b.x), 0.5f * (v[i].y - b.y));
+      const float2 q = make_float2(0.5f * (cn.x + d.x), 0.5f * (cn.y - d.y));
+      v[i] = make_float2(p.x - q.y, p.y + q.x);
+    }
+  }
+  stockham::run<LOGL, ODD, 0>(v, sm + c, stw, t, m, CC);
+
+  __syncthreads();  // every thread is past its last read of the exchange
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k2 = t + i * T;
+    sm[k2 * CC + c] = stockham::cmul(v[i], twx[j * k2]);
+  }
+  cluster.sync();
+
+  float2* Mp = mid + static_cast<size_t>(o) * H * Wq + k;
+#pragma unroll
+  for (int u = 0; u < kPer / Q; ++u) {  // L/Q = (16/Q)*T values of k2 a rank
+    const int k2 = j * (L / Q) + t + u * T;
+    float2 a[Q];
+#pragma unroll
+    for (int r = 0; r < Q; ++r) a[r] = cluster.map_shared_rank(sm, r)[k2 * CC + c];
+    stockham::dft<Q, 1>(a);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) Mp[(k2 + q * L) * Wq] = a[q];
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // (v, i) beats (bv, bi): NaN ranks highest, ties go to the lower index,
@@ -418,6 +542,12 @@ constexpr int rows_smem(int loga, int m) {
           stockham::tw_count(loga, m)) * static_cast<int>(sizeof(float2));
 }
 
+// the cluster route's, CC columns of length L = m << logl
+constexpr int cluster_smem(int cc, int logl, int m) {
+  return (cc * stockham::padded(m << logl) + stockham::tw_count(logl, m)) *
+         static_cast<int>(sizeof(float2));
+}
+
 // the most an instantiation asks for: m = 1, or every odd m > 1 it takes
 constexpr int max_smem(bool cols, int loga, bool odd) {
   int best = 0;
@@ -467,6 +597,48 @@ int launch_cols(int device, const float2* F, const float2* G, float2* mid,
   const dim3 grid(K, (W / 2 + C - 1) / C, NB / K);
   corr_cols_inverse<LOGA, ODD><<<grid, C * T, cols_smem(LOGA, m), stream>>>(
       F, G, mid, tw, ntw, m, W, K, g_shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A cluster kernel's attributes, once per (device, instantiation): the
+// dynamic shared memory of its largest launch, and a cluster above the
+// portable 8 blocks where Q asks for one
+template <typename Kernel>
+cudaError_t cluster_attrs(Kernel kernel, int device, int smem, int q, std::atomic<bool>* ready) {
+  const bool cache = device >= 0 && device < kMaxDevices;
+  if (cache && ready[device].load(std::memory_order_acquire)) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && q > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && cache) ready[device].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int LOGL, bool ODD, int Q, int CC>
+int launch_cluster(int device, const float2* F, const float2* G, float2* mid,
+                   const float2* tw, int m, int W, int NB, int K, int g_shared,
+                   cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  constexpr int kMost = cluster_smem(CC, LOGL, ODD ? (kMaxSide / Q) >> LOGL : 1);
+  static_assert(kMost <= kOptInSmem, "cluster pass 1 shared memory");
+  const auto kernel = corr_cols_cluster<LOGL, ODD, Q, CC>;
+  cudaError_t err = cluster_attrs(kernel, device, kMost, Q, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int L = m << LOGL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q * K, W / 2 / CC, NB / K);
+  cfg.blockDim = dim3(CC * L / kPer);
+  cfg.dynamicSmemBytes = cluster_smem(CC, LOGL, m);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, F, G, mid, tw, m, W, K, g_shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,14 +701,19 @@ const char* fftp_corr_error_string(int code) {
 }
 
 // F (NF, H, W/2+1) complex64, G (K, H, W/2+1) when g_shared else
-// (NB, H, W/2+1), mid (NB, H, W/2) complex64, tw the twiddle table of
-// length H (ntw complex64 entries). NB = NF * K.
+// (NB, H, W/2+1), mid (NB, H, W/2) complex64, tw the column twiddle table
+// (ntw complex64 entries): for H <= 2048 the stage twiddles of length H,
+// above them the stage twiddles of length L = H/8 then the H cross twiddles
+// exp(+2*pi*i*r/H), r < H. NB = NF * K.
 int fftp_corr_cols(int device, const void* F, const void* G, void* mid,
                    const void* tw, int ntw, int H, int W, int NB, int K,
                    int g_shared, void* stream) {
   int loga, m, lw, mw;
-  if (!split(H, &loga, &m) || !split(W, &lw, &mw) || ntw != stockham::tw_count(loga, m))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!split(H, &loga, &m) || !split(W, &lw, &mw)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool cluster = H > kClusterAbove;
+  const int logl = loga - (cluster_ranks(H) == 16 ? 4 : 3);  // L = m << logl
+  const int want = cluster ? stockham::tw_count(logl, m) + H : stockham::tw_count(loga, m);
+  if (ntw != want) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* f = static_cast<const float2*>(F);
@@ -544,6 +721,22 @@ int fftp_corr_cols(int device, const void* F, const void* G, void* mid,
   auto* mp = static_cast<float2*>(mid);
   const auto* w = static_cast<const float2*>(tw);
   auto s = static_cast<cudaStream_t>(stream);
+  if (cluster) {  // a static route by H, no fallback: H = Q * L, L = m << logl
+#define K1_CLUSTER(LL, ODD, Q) return launch_cluster<LL, ODD, Q, kCC>(device, f, g, mp, w, m, W, NB, K, g_shared, s);
+    if (cluster_ranks(H) == 8) {  // H = 128 * k, k odd: L = 16 * k
+      K1_CLUSTER(4, true, 8)
+    }
+    switch (logl) {  // H = 256 * k: L = 16 * k, k = 9..32
+      case 4: K1_CLUSTER(4, true, 16)
+      case 5: K1_CLUSTER(5, true, 16)
+      case 6: K1_CLUSTER(6, true, 16)
+      case 7: K1_CLUSTER(7, true, 16)
+      case 8: K1_CLUSTER(8, false, 16)
+      case 9: K1_CLUSTER(9, false, 16)
+    }
+#undef K1_CLUSTER
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define K1_COLS(L, ODD) return launch_cols<L, ODD>(device, f, g, mp, w, ntw, m, W, NB, K, g_shared, s);
   switch (loga) {
     case 7: if (m > 1) { K1_COLS(7, true) } K1_COLS(7, false)

@@ -2,9 +2,12 @@
 //
 // A register-resident Stockham FFT core for one block of threads: the
 // unnormalised inverse DFT y[n] = sum_m x[m] exp(+2*pi*i*m*n/N) of length
-// N = 2^LOGA * m, natural order in and out, for LOGA in [7, 13] (a template
-// argument) and m odd (a runtime argument). K1 takes every N = 128*k,
-// k <= 64, so m <= 63, and m = 1 above 4096.
+// N = 2^LOGA * m, natural order in and out, for LOGA in [4, 13] (a template
+// argument) and m odd (a runtime argument). K1 takes every side 128*k,
+// k <= 64, so m, the odd part of k, is at most 63 (4224 = 33*128 has
+// m = 33). Pass 1 up to 2048 rows and pass 2 run a whole side here (LOGA
+// >= 7); pass 1 above 2048 rows runs 8 transforms of length 16*k, one a
+// block of a thread-block cluster (LOGA 4..10, csrc/fftp_corr.cu).
 //
 // Each transform is held by T = N/16 threads, 16 complex values each: thread
 // t holds v[i] = x[t + i*T]. The plan factors 2^LOGA first: radix 16 for

@@ -8,7 +8,18 @@ its design. Its two passes (columns, then row pairs with the optional NCC
 epilogue) run the register-resident Stockham FFT of
 ``csrc/stockham_fft.cuh``, whose radix plan and float64-built stage
 twiddle tables this module makes (:func:`radix_plan`,
-:func:`stage_twiddles`).
+:func:`stage_twiddles`, :func:`column_twiddles`).
+
+Pass 1 takes one of two routes, fixed by H. Up to ``CLUSTER_ABOVE`` = 2048
+rows a block transforms 8 to 64 whole columns of length H, and is bound by
+its strided reads of 64 B or more of each spectrum row. Above 2048 rows a
+whole column would leave 2 to 5 columns a block (16 to 40 B of each row),
+so a thread-block cluster of :func:`cluster_ranks` blocks (16, or 8 where
+H/16 is not a multiple of 16) owns 8 columns and splits H = Q * L: each
+block transforms one residue class of rows at length L, and the blocks
+combine through distributed shared memory. Both read the spectra once and
+write the mid plane once; the cluster route is bound by those bytes at
+64 B a row.
 
 Bank layout: ``F`` holds the image spectra, (H, Wh) or (NF, H, Wh) with
 Wh = W//2 + 1. ``G`` holds the template spectra, (K, H, Wh) for a bank
@@ -44,9 +55,12 @@ from . import _nvcc
 from .phasecorr import argmax2d
 
 __all__ = [
+    "CLUSTER_ABOVE",
     "LAUNCHES",
     "PLAIN_BY_SHAPE",
     "build",
+    "cluster_ranks",
+    "column_twiddles",
     "corr_from_rfft",
     "corr_from_rfft_plain",
     "ncc_masked_peaks",
@@ -58,6 +72,9 @@ __all__ = [
     "supported",
 ]
 
+#: pass 1 above this many rows runs on thread-block clusters
+#: (``corr_cols_cluster`` in the source) of :func:`cluster_ranks` blocks
+CLUSTER_ABOVE = 2048
 #: kernel launches by pass: pass 1 (columns), pass 2, pass 2 with the NCC epilogue
 LAUNCHES: dict[str, int] = {"cols": 0, "rows": 0, "rows_ncc": 0}
 #: CUDA calls that took the plain version because the kernel does not cover
@@ -131,10 +148,30 @@ def stage_twiddles(n: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def cluster_ranks(h: int) -> int:
+    """Blocks a cluster of pass 1's cluster route at ``h`` rows, as the
+    source's ``cluster_ranks``: 16 where L = h/16 is a multiple of 16 (the
+    Stockham core's), else 8, the portable size."""
+    return 16 if h % 256 == 0 else 8
+
+
+def column_twiddles(h: int) -> np.ndarray:
+    """Pass 1's twiddle table for ``h`` rows, complex128: :func:`stage_twiddles`
+    of ``h`` up to CLUSTER_ABOVE rows; above them (the cluster route,
+    h = Q * L, Q = :func:`cluster_ranks`) the stage twiddles of length L, then
+    the h cross twiddles exp(+2*pi*i*r/h), r < h, that rank j applies to
+    output k2 of its length-L transforms as entry j*k2."""
+    if h <= CLUSTER_ABOVE:
+        return stage_twiddles(h)
+    return np.concatenate([stage_twiddles(h // cluster_ranks(h)), np.exp(2j * np.pi * np.arange(h) / h)])
+
+
 @lru_cache(maxsize=32)
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """:func:`stage_twiddles`, built in float64 and rounded once to float32."""
-    return torch.from_numpy(stage_twiddles(n).astype(np.complex64)).to(device)
+def _twiddles(n: int, device: torch.device, columns: bool = False) -> torch.Tensor:
+    """:func:`stage_twiddles` (``columns``: :func:`column_twiddles`), built
+    in float64 and rounded once to float32."""
+    table = column_twiddles(n) if columns else stage_twiddles(n)
+    return torch.from_numpy(table.astype(np.complex64)).to(device)
 
 
 @lru_cache(maxsize=16)
@@ -185,7 +222,7 @@ def _cols(lib, F3, G, NF, K, shared, H, W):
     _nvcc.check_tensor(F3, "K1", "F", torch.complex64, (NF, H, Wh))
     _nvcc.check_tensor(G, "K1", "G", torch.complex64, (K, H, Wh) if shared else (NF, K, H, Wh))
     mid = torch.empty((NB, H, W // 2), dtype=torch.complex64, device=F3.device)
-    tw = _twiddles(H, F3.device)
+    tw = _twiddles(H, F3.device, columns=True)
     rc = lib.fftp_corr_cols(
         F3.device.index, F3.data_ptr(), G.data_ptr(), mid.data_ptr(),
         tw.data_ptr(), tw.numel(), H, W, NB, K, int(shared),

@@ -19,14 +19,18 @@ Phases, one line each with its wall time:
    the sharpness path's image, chunks and tail, and on one z-scored frame
    against one zero-padded template spectrum as ``template_matching`` sends
    it; then at the sides off the powers of two: K1a B=1 at 1536^2,
-   ``autocorr2d``'s layout, B=4 at 3072^2 and B=1 at 8192^2 on frames made on
-   the card, K1b's 9-template bank on the coverage stack at 2048 x 2560),
-   timed with
+   ``autocorr2d``'s layout, B=4 at 3072^2 and B=1 at 8192^2 and at 2560 x
+   2048 (H = 2560) on frames made on the card, K1b's 9-template bank on the
+   coverage stack at 2048 x 2560; then Config D's layouts on the 4096^2
+   stack of phase 4b, K1a B=4 and K1b B=36: pass 1 above 2048 rows runs on
+   thread-block clusters), timed with
    CUDA events (median of 10 single calls) beside the library call (cuFFT's
    irfft2 of the products formed beforehand), then all three split by
    kernel: the device time of each pass from 10 calls under torch.profiler,
    and the time per call of 10 calls queued back to back (host enqueue
-   overlapped);
+   overlapped); each K1 row prints its device time by pass and pass 1's
+   effective rate (the spectra read once plus the mid plane written once,
+   over its time);
 4. slice: ``speckle_stack_stats`` at the JAX package's defaults (lazy
    grain maps on) on a 16 x 2048^2 uint16 spiral stack (Config D), run
    twice; the second run is counted and timed. Checks the K1 launch counts
@@ -47,8 +51,13 @@ Phases, one line each with its wall time:
    float64 run on the card; ``signal.autocorr2d`` of a CUDA tensor at
    1536^2 through K1a (against float64, ns a pixel beside 2048^2 and beside
    the plain path's PR 8 reading), ``spectral_summary_stack`` of 4 x 3072^2
-   CUDA frames in one chunk and ``signal.autocorr2d`` at 8192^2: one K1a
-   each, no plain call;
+   CUDA frames in one chunk, ``signal.autocorr2d`` at 8192^2 and of frame 0
+   on its side (2560 x 2048, against float64): one K1a each, no plain call;
+4b. coverage-4096: ``speckle_stack_stats`` at Config D's settings on 8
+   frames of 4096^2 uint16 (a 16-Mpx detector), spiral motion, seed 1234,
+   run twice, the second counted: one K1a and two K1b a chunk through the
+   cluster route of pass 1, MP/s, tracking within 0.05 px of the spiral,
+   frames 0-1 within 1e-4 of a float64 run on the card;
 5. speckle-stats: ``speckle_stats`` on frame 0 (all groups, tiles), run
    twice, the second counted: K1a launches; leaves against a float64 run on
    the card (rtol 1e-4); reading the lazy map launches K1a once more and
@@ -286,6 +295,10 @@ UNCOVERED_SIDE, COVERED_SIDE = 1500, 2048
 # at WIDE_SIDE^2 and one frame at HUGE_SIDE^2, the largest side K1 takes
 COV_T, COV_SHAPE, COV_CHUNK = 8, (2048, 2560), 4
 MID_SIDE, WIDE_SIDE, WIDE_B, HUGE_SIDE = 1536, 3072, 4, 8192
+# K1's pass 1 above 2048 rows: Config D's settings on BIG_T frames of a
+# 16-Mpx (4096^2) detector, and one frame of TALL_SHAPE (a 2560-column
+# sensor mounted on its side: H = 2560)
+BIG_T, BIG_SHAPE, TALL_SHAPE = 8, (4096, 4096), (2560, 2048)
 # PR 8's signal.autocorr2d at 1536^2 on the plain path (ns a pixel, NVIDIA
 # H100 80GB HBM3, 700.00 W), the number the kernel path is logged beside
 PLAIN_1536_NS_PER_PX = 0.4031
@@ -509,10 +522,13 @@ def kernel_ms(torch, fn) -> dict:
     return {"queued back to back (CUDA events: the profiler lost device events)": queued_ms(torch, fn)}
 
 
-def log_device_split(torch, label: str, fn) -> float:
+def log_device_split(torch, label: str, fn, parts: dict | None = None) -> float:
     """Log the queued time per call and the device time per call by kernel;
-    return the device time per call (ms)."""
+    return the device time per call (ms) and, where ``parts`` is given, fill
+    it with the split by kernel."""
     split = kernel_ms(torch, fn)
+    if parts is not None:
+        parts.update(split)
     device = sum(split.values())
     parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
     log(f"  {label}: queued {queued_ms(torch, fn):.4f} ms/call; device {device:.4f} "
@@ -553,6 +569,20 @@ def fft_flops(n: int) -> float:
     return 2.5 * n * np.log2(n)
 
 
+def k1_by_pass(label: str, split: dict, spectra_bytes: int, mid_bytes: int) -> dict:
+    """K1's device time by pass from a split by kernel name (pass 1: the
+    column kernels, pass 2: the row kernels) and pass 1's effective rate:
+    the spectra read once plus the mid plane written once, over its time."""
+    p1 = sum(v for k, v in split.items() if k.startswith("corr_cols"))
+    p2 = sum(v for k, v in split.items() if k.startswith("corr_rows"))
+    moved = spectra_bytes + mid_bytes
+    rate = moved / (p1 * 1e-3) / 1e12 if p1 > 0 else None
+    log(f"  {label} by pass: pass 1 {p1:.4f} ms"
+        + (f" = {rate:.3f} TB/s effective" if rate else " (not measured: no pass-1 event)")
+        + f" ({moved} bytes: spectra read once, mid plane written once); pass 2 {p2:.4f} ms")
+    return {"pass1_ms": p1, "pass2_ms": p2, "pass1_tb_s": rate}
+
+
 def k1a_row(torch, label: str, F, G, planes: int, s, card: str) -> dict:
     """One K1a layout against its plain version on the same spectra (within
     KERNEL_ATOL_REL of the plain result's max), timed by CUDA events, by
@@ -577,15 +607,18 @@ def k1a_row(torch, label: str, F, G, planes: int, s, card: str) -> dict:
     log(f"K1a corr_from_rfft {label} {H}x{W}: max_abs_err {err:.3e} "
         f"(max|plain| {scale:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library irfft2 {library_ms:.3f} ms; {card}")
-    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)))
+    split: dict = {}
+    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.corr_from_rfft(F, G, s=(H, W)), split)
+    passes = k1_by_pass(f"K1a {label} {H}x{W}", split, nbytes(F, G), prod.numel() // prod.shape[-1] * (W // 2) * 8)
     log_device_split(torch, "plain", lambda: cuda_fftp.corr_from_rfft_plain(F, G, s=(H, W)))
-    log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+    library_device_ms = log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
     flops = planes * (6 * F.shape[-2] * F.shape[-1] + fft_flops(H * W))
     return {"name": f"corr_from_rfft {label}" + ("" if (H, W) == (SIDE, SIDE) else f" {H}x{W}"),
             "route": "cuda", "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
             "replaces": "barc4dip_tpu/ops/pallas_fftp.py:313",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-            **bound(nbytes(F, G, got), flops), "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms, **passes,
+            **bound(nbytes(F, G, got), flops), "library_ms": library_ms,
+            "library_device_ms": library_device_ms}
 
 
 def k1b_row(torch, label: str, args, kw, card: str) -> dict:
@@ -622,16 +655,19 @@ def k1b_row(torch, label: str, args, kw, card: str) -> dict:
     log(f"K1b ncc_masked_peaks {label} {H}x{W}: max_abs_err {err:.3e} "
         f"(max|plain| {scale:.3e}), peaks equal, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"library irfft2 {library_ms:.3f} ms; {card}")
-    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw))
-    log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
-    log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
+    split: dict = {}
+    device_ms = log_device_split(torch, "kernel", lambda: cuda_fftp.ncc_masked_peaks(*args, **kw), split)
     planes = prod.shape[0] * prod.shape[1]
+    passes = k1_by_pass(f"K1b {label} {H}x{W}", split, nbytes(args[0], args[1]), planes * H * (W // 2) * 8)
+    log_device_split(torch, "plain", lambda: cuda_fftp.ncc_masked_peaks_plain(*args, **kw))
+    library_device_ms = log_device_split(torch, "library", lambda: torch.fft.irfft2(prod, s=(H, W)))
     flops = planes * (6 * prod.shape[-2] * prod.shape[-1] + fft_flops(H * W) + 4 * H * W)
     return {"name": f"ncc_masked_peaks {label}" + ("" if (H, W) == (SIDE, SIDE) else f" {H}x{W}"),
             "route": "cuda", "source": "barc4dip_tpu_torch/csrc/fftp_corr.cu",
             "replaces": "barc4dip_tpu/ops/pallas_fftp.py:398",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-            **bound(nbytes(*args, maps, iy, ix), flops), "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms, **passes,
+            **bound(nbytes(*args, maps, iy, ix), flops), "library_ms": library_ms,
+            "library_device_ms": library_device_ms}
 
 
 def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
@@ -1648,30 +1684,49 @@ def device_speckle(torch, dev, n: int, h: int, w: int, seed: int):
     return (field / field.mean(dim=(-2, -1), keepdim=True) * MEAN_COUNTS).float()
 
 
-def make_coverage_data() -> dict:
-    """The coverage phase's stack (COV_T frames of COV_SHAPE uint16, the
-    spiral motion, seed SEED) and its tracking grid."""
+def make_coverage_data(T: int = COV_T, shape=COV_SHAPE) -> dict:
+    """A coverage stack (T frames of ``shape`` uint16, the spiral motion,
+    seed SEED) and its tracking grid."""
     from barc4dip_tpu_torch.metrics.speckles import tracking_grid_from_frame0
     from barc4dip_tpu_torch.metrics.tracking_batch import _grid_geometry
     from barc4dip_tpu_torch.utils import speckle_stack, spiral_motion
 
-    dys, dxs = spiral_motion(COV_T)
-    stack = speckle_stack(COV_T, COV_SHAPE, grain_px=GRAIN_PX, mean_counts=MEAN_COUNTS, dys=dys, dxs=dxs,
+    dys, dxs = spiral_motion(T)
+    stack = speckle_stack(T, shape, grain_px=GRAIN_PX, mean_counts=MEAN_COUNTS, dys=dys, dxs=dxs,
                           seed=np.random.default_rng(SEED), dtype=np.uint16)
     grid, _labels, roi_side, step, _g0 = tracking_grid_from_frame0(stack)
     starts, _, s = _grid_geometry(grid)
     return {"stack": stack, "starts": starts, "s": s, "roi_side": roi_side, "step": step}
 
 
-def check_kernels_sides(torch, dev, stack, cov: dict, card: str) -> list[dict]:
-    """K1 at sides off the powers of two, against the plain versions: K1a
-    B=1 at MID_SIDE^2 (frame 0's centre crop, ``signal.autocorr2d``'s
-    layout), B=WIDE_B at WIDE_SIDE^2 (a ``spectral_summary_stack`` chunk),
-    B=1 at HUGE_SIDE^2; K1b's 9-template bank on the coverage stack. Each
-    row names the coverage path whose counted run gives its launches."""
+def tracker_bank_args(torch, dev, data: dict, nf: int):
+    """K1b's arguments as the tracker sends them: frame 0's 9 templates
+    against frames 1..nf of a coverage stack, a bank shared by the frames."""
     from barc4dip_tpu_torch.config import upload
     from barc4dip_tpu_torch.metrics.tracking_batch import _extract_tiles
-    from barc4dip_tpu_torch.ops import corrcore, ncc
+    from barc4dip_tpu_torch.ops import ncc
+
+    frames = upload(data["stack"][: nf + 1], dev)
+    H, W = frames.shape[-2:]
+    s = data["s"]
+    bank = ncc.prep_template(_extract_tiles(frames[0], data["starts"], s), H, W)
+    prep = ncc.zncc_prepare_image(frames[1:], s, s, eps=1e-9)
+    var_full = torch.nn.functional.pad(prep["var_sum"], (0, s - 1, 0, s - 1))
+    args = (prep["F"], bank["Ft"], var_full, bank["energy"])
+    return args, dict(valid_hw=(H - s + 1, W - s + 1), eps=1e-9, s=(H, W))
+
+
+def check_kernels_sides(torch, dev, stack, cov: dict, big: dict, card: str) -> list[dict]:
+    """K1 at sides off the powers of two and above 2048 rows, against the
+    plain versions: K1a B=1 at MID_SIDE^2 (frame 0's centre crop,
+    ``signal.autocorr2d``'s layout), B=WIDE_B at WIDE_SIDE^2 (a
+    ``spectral_summary_stack`` chunk), B=1 at HUGE_SIDE^2 and at TALL_SHAPE,
+    B=FRAME_CHUNK on the 4096^2 stack (its full-frame grain); K1b's
+    9-template bank on the coverage stack (B=9) and on FRAME_CHUNK frames of
+    the 4096^2 stack (B=36, Config D's tracker). Each row names the coverage
+    path whose counted run gives its launches."""
+    from barc4dip_tpu_torch.config import upload
+    from barc4dip_tpu_torch.ops import corrcore
 
     rows = []
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
@@ -1680,22 +1735,26 @@ def check_kernels_sides(torch, dev, stack, cov: dict, card: str) -> list[dict]:
     F = torch.fft.rfft2(corrcore._precondition(crop, True, False))
     rows.append({**k1a_row(torch, "B=1", F, F[:, None], 1, (MID_SIDE, MID_SIDE), card),
                  "path": f"autocorr2d {MID_SIDE}"})
-    for nf, side, path in ((WIDE_B, WIDE_SIDE, f"spectral_summary_stack {WIDE_SIDE}"),
-                           (1, HUGE_SIDE, f"autocorr2d {HUGE_SIDE}")):
-        F = torch.fft.rfft2(corrcore._precondition(device_speckle(torch, dev, nf, side, side, SEED + side), True, False))
-        rows.append({**k1a_row(torch, f"B={nf}", F, F[:, None], nf, (side, side), card), "path": path})
+    th, tw = TALL_SHAPE
+    for nf, (h, w), path in ((WIDE_B, (WIDE_SIDE, WIDE_SIDE), f"spectral_summary_stack {WIDE_SIDE}"),
+                             (1, (HUGE_SIDE, HUGE_SIDE), f"autocorr2d {HUGE_SIDE}"),
+                             (1, TALL_SHAPE, f"autocorr2d {th}x{tw}")):
+        F = torch.fft.rfft2(corrcore._precondition(device_speckle(torch, dev, nf, h, w, SEED + h), True, False))
+        rows.append({**k1a_row(torch, f"B={nf}", F, F[:, None], nf, (h, w), card), "path": path})
         del F
         torch.cuda.empty_cache()
 
-    frames = upload(cov["stack"][:2], dev)
-    H, W = frames.shape[-2:]
-    s = cov["s"]
-    bank = ncc.prep_template(_extract_tiles(frames[0], cov["starts"], s), H, W)
-    prep = ncc.zncc_prepare_image(frames[1:2], s, s, eps=1e-9)
-    var_full = torch.nn.functional.pad(prep["var_sum"], (0, s - 1, 0, s - 1))
-    args = (prep["F"], bank["Ft"], var_full, bank["energy"])
-    kw = dict(valid_hw=(H - s + 1, W - s + 1), eps=1e-9, s=(H, W))
-    rows.append({**k1b_row(torch, "B=9", args, kw, card), "path": "coverage stack"})
+    bh, bw = BIG_SHAPE
+    big_path = f"Config D {bh}x{bw}"
+    F = torch.fft.rfft2(corrcore._precondition(upload(big["stack"][:FRAME_CHUNK], dev), True, False))
+    rows.append({**k1a_row(torch, f"B={FRAME_CHUNK}", F, F[:, None], FRAME_CHUNK, BIG_SHAPE, card),
+                 "path": big_path})
+    del F
+    for data, nf, path in ((cov, 1, "coverage stack"), (big, FRAME_CHUNK, big_path)):
+        args, kw = tracker_bank_args(torch, dev, data, nf)
+        rows.append({**k1b_row(torch, f"B={9 * nf}", args, kw, card), "path": path})
+        del args
+        torch.cuda.empty_cache()
     log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
     return rows
 
@@ -1715,17 +1774,17 @@ def refused_by_both(plain: dict) -> None:
         raise AssertionError(f"K1 covers {covered} but they took the plain path")
 
 
-def run_coverage(torch, dev, cov: dict, card: str) -> dict:
-    """K1 at the sides the TPU kernel takes beyond the powers of two (see
-    the module docstring, phase 4a). Every call runs twice; the second is
-    counted."""
+def run_stack_cell(torch, dev, cst: np.ndarray, chunk: int, label: str, card: str) -> dict:
+    """``speckle_stack_stats`` at Config D's settings on ``cst``, run twice
+    and the second counted: one K1a and two K1b a chunk, only subtile
+    shapes on the plain path, tracking within TRACK_GATE_PX of the spiral,
+    frames 0..GOLDEN_K-1 within RTOL of a float64 run on the card. Returns
+    the counted run's K1 launches."""
     import barc4dip_tpu_torch as port
-    from barc4dip_tpu_torch import signal
     from barc4dip_tpu_torch.ops import cuda_fftp
 
-    cst = cov["stack"]
     T, H, W = cst.shape
-    kw = dict(metrics="all", tiles=True, frame_chunk=COV_CHUNK, verbose=False, device=dev)
+    kw = dict(metrics="all", tiles=True, frame_chunk=chunk, verbose=False, device=dev)
     port.speckle_stack_stats(cst, **kw)
     cuda_fftp.reset_counts()
     torch.cuda.synchronize()
@@ -1734,28 +1793,40 @@ def run_coverage(torch, dev, cov: dict, card: str) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
-    chunks = -(-T // COV_CHUNK)
-    log(f"coverage: speckle_stack_stats {cst.shape} {cst.dtype} (Config D settings, frame_chunk {COV_CHUNK}): "
+    chunks = -(-T // chunk)
+    log(f"{label}: speckle_stack_stats {cst.shape} {cst.dtype} (Config D settings, frame_chunk {chunk}): "
         f"counted run {secs:.3f} s = {T * H * W / 1e6 / secs:.2f} MP/s; K1 launches {json.dumps(launches)}; "
         f"plain by shape {json.dumps(plain)}; {card}")
     want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}
     if launches != want:
-        raise AssertionError(f"coverage stack: K1 launches {launches} != {want}")
+        raise AssertionError(f"{label}: K1 launches {launches} != {want}")
     refused_by_both(plain)
     if not set(plain) <= subtile_plain_keys(H, W):
-        raise AssertionError(f"coverage stack: unexpected plain-path shapes {sorted(plain)}")
+        raise AssertionError(f"{label}: unexpected plain-path shapes {sorted(plain)}")
     err = spiral_error(out)
     if not err <= TRACK_GATE_PX:
-        raise AssertionError(f"coverage stack: tracking error {err:.4f} px > {TRACK_GATE_PX} px")
+        raise AssertionError(f"{label}: tracking error {err:.4f} px > {TRACK_GATE_PX} px")
     run = metric_leaves(out, GOLDEN_K)
+    del out
     ref = metric_leaves(port.speckle_stack_stats(cst[:GOLDEN_K].astype(np.float64), **kw), GOLDEN_K)
     worst, verr, n = compare_leaves(run, ref)
-    log(f"coverage stack: tracking max |abs - spiral| {err:.4f} px (gate {TRACK_GATE_PX}); frames 0-{GOLDEN_K - 1} "
+    log(f"{label}: tracking max |abs - spiral| {err:.4f} px (gate {TRACK_GATE_PX}); frames 0-{GOLDEN_K - 1} "
         f"vs a float64 run on the card: {n} leaves (the maps among them), max rel err {verr:.3e} on {worst} "
         f"(rtol {RTOL:g})")
     if not verr <= RTOL:
-        raise AssertionError(f"coverage stack float64 check: {worst} {verr:.3e}")
-    res = {"coverage stack": launches}
+        raise AssertionError(f"{label} float64 check: {worst} {verr:.3e}")
+    return launches
+
+
+def run_coverage(torch, dev, cov: dict, card: str) -> dict:
+    """K1 at the sides the TPU kernel takes beyond the powers of two (see
+    the module docstring, phase 4a). Every call runs twice; the second is
+    counted."""
+    from barc4dip_tpu_torch import signal
+    from barc4dip_tpu_torch.ops import cuda_fftp
+
+    cst = cov["stack"]
+    res = {"coverage stack": run_stack_cell(torch, dev, cst, COV_CHUNK, "coverage stack", card)}
 
     one_k1a = {"cols": 1, "rows": 1, "rows_ncc": 0}
 
@@ -1803,8 +1874,26 @@ def run_coverage(torch, dev, cov: dict, card: str) -> dict:
         f"signal.autocorr2d at {HUGE_SIDE}^2: {h_ms:.3f} ms = {h_ms / HUGE_SIDE**2 * 1e6:.4f} ns a pixel, zero lag "
         f"the peak; one K1a each, no plain call; {card}")
     del huge, hac
+    # a 2560-column sensor on its side: H = 2560, K1's pass 1 above 2048 rows
+    th, tw = TALL_SHAPE
+    tall = torch.from_numpy(np.ascontiguousarray(cst[0].T[:th, :tw])).to(dev)
+    tac = counted(f"autocorr2d {th}x{tw}", lambda: signal.autocorr2d(tall))[0]
+    t_err = leaf_rel_err(tac.cpu().numpy(), signal.autocorr2d(tall.double())[0].cpu().numpy())
+    t_ms = time_ms(torch, lambda: signal.autocorr2d(tall))
+    log(f"signal.autocorr2d of frame 0 on its side ({th} x {tw}, K1a): {t_ms:.3f} ms, max rel err {t_err:.3e} "
+        f"vs float64; {card}")
+    if not t_err <= RTOL:
+        raise AssertionError(f"autocorr2d at {th}x{tw} vs float64: {t_err:.3e}")
     torch.cuda.empty_cache()
     return res
+
+
+def run_big(torch, dev, big: dict, card: str) -> dict:
+    """Config D's settings on BIG_T frames of BIG_SHAPE (a 16-Mpx detector):
+    K1's pass 1 above 2048 rows on the stack path, at full width."""
+    bh, bw = BIG_SHAPE
+    label = f"Config D {bh}x{bw}"
+    return {label: run_stack_cell(torch, dev, big["stack"], FRAME_CHUNK, label, card)}
 
 
 def make_flat(shape) -> np.ndarray:
@@ -2893,12 +2982,14 @@ def main() -> int:
         starts, _, s = _grid_geometry(grid)
         log(f"stack {stack.shape} {stack.dtype}; tracking ROI {roi_side} px, step {step} px")
         cov = make_coverage_data()
-        log(f"coverage stack {cov['stack'].shape} {cov['stack'].dtype}; tracking ROI {cov['roi_side']} px, "
-            f"step {cov['step']} px")
+        big = make_coverage_data(BIG_T, BIG_SHAPE)
+        for label, d in (("coverage stack", cov), (f"{BIG_SHAPE[0]}x{BIG_SHAPE[1]} stack", big)):
+            log(f"{label} {d['stack'].shape} {d['stack'].dtype}; tracking ROI {d['roi_side']} px, "
+                f"step {d['step']} px")
 
     with Phase("kernels"):
         rows = check_kernels(torch, dev, stack, starts, s, card)
-        rows += check_kernels_sides(torch, dev, stack, cov, card)
+        rows += check_kernels_sides(torch, dev, stack, cov, big, card)
 
     with Phase("slice"):
         res = run_slice(torch, dev, stack, card)
@@ -2906,6 +2997,10 @@ def main() -> int:
     with Phase("coverage"):
         coverage = run_coverage(torch, dev, cov, card)
         del cov
+
+    with Phase("coverage-4096"):
+        coverage.update(run_big(torch, dev, big, card))
+        del big
 
     with Phase("values"):
         check_values(dev, stack, res["out"])

@@ -219,6 +219,56 @@ def test_ncc_mixed_radix_vs_numpy(dev, h, w):
         assert np.isnan(maps[1]).any() and not np.isnan(maps[0]).any()
 
 
+# pass 1 above 2048 rows, on thread-block clusters, one shape at least for
+# each instantiation: 8 blocks a cluster at 2176 = 8 * 272 (odd factor 17),
+# 16 at 2304 = 16 * 144 (odd factor 9, partial warps), 2560, 3072, 6144
+# (odd factors 5, 3, 3) and the powers of two; narrow and square planes,
+# several images and templates where the planes are small
+CLUSTER_SHAPES = [(2176, 384), (2304, 640), (2560, 512), (3072, 3072), (4096, 4096), (6144, 256),
+                  (8192, 128), (8192, 8192)]
+
+
+def _cluster_batch(h, w):
+    return (1, 2) if h * w >= 3072 * 3072 else (2, 3)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("h, w", CLUSTER_SHAPES)
+def test_corr_cluster_route_vs_numpy(dev, h, w, shared):
+    nf, k = _cluster_batch(h, w)
+    F, G = _random_spectra(h, w, nf, k, shared, seed=5 * h + w)
+    cuda_fftp.reset_counts()
+    got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    want = _corr_ref(F, G, h, w)
+    got = got.cpu().numpy()
+    assert got.shape == want.shape == (nf, k, h, w)
+    assert np.abs(got - want).max() <= ATOL_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("h, w", CLUSTER_SHAPES)
+def test_ncc_cluster_route_vs_numpy(dev, h, w, shared):
+    nf, k = _cluster_batch(h, w)
+    F, G, var, en = _ncc_inputs(h, w, nf, k, shared, seed=11 * h + w)
+    _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
+    assert not cuda_fftp.PLAIN_BY_SHAPE
+
+
+@pytest.mark.parametrize("vh, vw", [(100, 200), (0, 256), (4096, 1)])
+def test_ncc_cluster_route_nan_spectra_and_masked_rows(dev, vh, vw):
+    """At H = 4096: NaN in one image's spectrum (row 3, so in rank 3 of each
+    cluster) makes its planes NaN wherever the denominator is > eps, ranked
+    highest; rows at or past vh are -inf throughout."""
+    h, w = 4096, 256
+    F, G, var, en = _ncc_inputs(h, w, 2, 3, True, seed=13)
+    F[1, 3, 5] = np.nan
+    maps = _check_ncc(dev, F, G, var, en, h, w, vh, vw)
+    assert np.isneginf(maps[:, :, vh:]).all()
+    if vh and vw:
+        assert np.isnan(maps[1]).any() and not np.isnan(maps[0]).any()
+
+
 @pytest.mark.parametrize("h, w", [(256, 512), (2048, 2048)])
 def test_ncc_nan_spectra_rank_highest(dev, h, w):
     """NaN in one image's spectrum makes its planes NaN wherever the

@@ -229,15 +229,54 @@ def _unload(v, n):
     return out
 
 
+def _cluster_cols(x, n):
+    """corr_cols_cluster's length-n transform of x (..., n), n > 2048: rank j
+    of the cluster (n = Q*L) loads rows j + Q*n2 into the register layout
+    (thread t holds v[t, i] = x[j + Q*(t + i*T)], T = L/16), runs the
+    length-L stages, multiplies output k2 by the cross twiddle at entry
+    j*k2 of the table's tail; rank j's combine then takes k2 = j*L/Q + t +
+    u*T (u < 16/Q) and writes the Q-point register DFT of the ranks' values
+    to rows k2 + L*k1."""
+    Q = cuda_fftp.cluster_ranks(n)
+    assert Q in (8, 16) and n % (16 * Q) == 0
+    L = n // Q
+    T = L // 16
+    table = cuda_fftp.column_twiddles(n)
+    cross = table[tw_count(L):]
+    assert cross.size == n
+    slots = np.arange(T)[:, None] + np.arange(16)[None, :] * T
+    k2 = np.arange(L)
+    z = np.stack([_unload(_stages(x[..., j + Q * slots], L), L) * cross[j * k2] for j in range(Q)], -1)
+    y = np.empty(x.shape, complex)
+    seen = np.zeros(L, int)
+    for j in range(Q):  # the combine, rank by rank
+        for u in range(16 // Q):
+            kk = j * (L // Q) + np.arange(T) + u * T
+            seen[kk] += 1
+            out = _register_dft(z[..., kk, :])
+            for k1 in range(Q):
+                y[..., kk + L * k1] = out[..., k1]
+    assert (seen == 1).all()  # each k2 once
+    return y
+
+
+def _column_pass(cols, H):
+    """Pass 1's column transform of cols (H, W/2), by the kernel's route."""
+    if H > cuda_fftp.CLUSTER_ABOVE:
+        return _cluster_cols(cols.T, H).T
+    TH = H // 16
+    v = cols.T[:, np.arange(TH)[:, None] + np.arange(16)[None, :] * TH]
+    return _unload(_stages(v, H), H).T
+
+
 def _kernel_irfft2(X, H, W):
     """Passes 1 and 2 of the kernel on the product spectrum X (H, W/2+1)."""
-    Wq, TH, TW = W // 2, H // 16, W // 16
+    Wq, TW = W // 2, W // 16
     m = np.arange(H)
     cols = X[:, :Wq].copy()  # slot 0 packs the Hermitian parts of columns 0, W/2
     a, c = X[:, 0], X[:, Wq]
     cols[:, 0] = 0.5 * (a + np.conj(a[-m])) + 1j * 0.5 * (c + np.conj(c[-m]))
-    v = cols.T[:, np.arange(TH)[:, None] + np.arange(16)[None, :] * TH]
-    mid = _unload(_stages(v, H), H).T  # (H, W/2)
+    mid = _column_pass(cols, H)  # (H, W/2)
 
     t, i = np.arange(TW)[:, None], np.arange(16)[None, :]
     lo = i < 8
@@ -274,6 +313,33 @@ def test_radix_plan_matches_ifft(rng, n):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("n", [128 * k for k in range(17, 65)])
+def test_cluster_column_pass_matches_ifft(rng, n):
+    """The cluster route of pass 1 (every side above 2048 the gate takes,
+    odd factors 3..63 included) against numpy's inverse FFT."""
+    x = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
+    want = np.fft.ifft(x) * n
+    np.testing.assert_allclose(_cluster_cols(x, n), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("h", [128, 1536, 2048, 2176, 2304, 3072, 4096, 6144, 8064, 8192])
+def test_column_twiddles_have_the_length_the_source_checks(h):
+    """fftp_corr_cols refuses a table of another length: tw_count(h) up to
+    CLUSTER_ABOVE rows, above them tw_count(h/Q) + h (Q = 16 blocks a
+    cluster where 256 divides h, else 8), the cross twiddles
+    exp(+2*pi*i*r/h) last."""
+    table = cuda_fftp.column_twiddles(h)
+    if h <= cuda_fftp.CLUSTER_ABOVE:
+        assert table.shape == (tw_count(h),)
+        np.testing.assert_array_equal(table, cuda_fftp.stage_twiddles(h))
+    else:
+        L = h // cuda_fftp.cluster_ranks(h)
+        assert L % 16 == 0
+        assert table.shape == (tw_count(L) + h,)
+        np.testing.assert_array_equal(table[: tw_count(L)], cuda_fftp.stage_twiddles(L))
+        np.testing.assert_allclose(table[tw_count(L):], np.exp(2j * np.pi * np.arange(h) / h), rtol=0, atol=0)
+
+
 def test_tw_count_of_the_power_of_two_sides():
     assert {n: tw_count(n) for n in (128, 256, 512, 1024, 2048, 4096, 8192)} == {
         128: 112, 256: 240, 512: 496, 1024: 1008, 2048: 2032, 4096: 4080, 8192: 8176}
@@ -282,7 +348,8 @@ def test_tw_count_of_the_power_of_two_sides():
 
 @pytest.mark.parametrize("h, w", [(128, 128), (256, 512), (512, 256), (128, 4096), (4096, 128),
                                   (1024, 2048), (384, 640), (1536, 2560), (8192, 128),
-                                  (128, 8192), (8064, 896)])
+                                  (128, 8192), (8064, 896), (2176, 256), (3072, 384),
+                                  (4096, 4096), (6144, 128), (8192, 256)])
 def test_kernel_passes_match_numpy_irfft2(rng, h, w):
     """Random complex half spectra, not Hermitian where rfft2 would make
     them so: numpy drops the imaginary parts of the DC and Nyquist bins

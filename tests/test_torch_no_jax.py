@@ -163,6 +163,35 @@ def test_chip_smoke_needs_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+def test_k1_passes_needs_a_card_and_imports_no_jax():
+    """The K1 timing script fails without CUDA and prints no timing; loaded
+    with the port's kernel module it pulls in nothing of JAX. Its variant
+    plans split each side into ranks of whole 16-value threads, and the
+    source it copies still has the launcher and the C block it cuts at."""
+    proc = subprocess.run(
+        [sys.executable, "k1_passes.py"], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode != 0
+    assert "pass1_ms" not in proc.stdout
+    probe = ("import runpy, sys; mod = runpy.run_path('k1_passes.py', run_name='k1'); "
+             "import barc4dip_tpu_torch.ops.cuda_fftp; "
+             "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'barc4dip_tpu.')) "
+             "or k == 'barc4dip_tpu'))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    spec = importlib.util.spec_from_file_location("k1_passes", REPO / "k1_passes.py")
+    k1 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k1)
+    for (h, _w, _nb), plans in k1.VARIANT_SIDES.items():
+        assert 2048 < h <= 8192 and h % 128 == 0
+        for q, cc in plans:
+            assert q in (8, 16) and h % (16 * q) == 0 and cc * h // q // 16 <= 1024
+    src = (REPO / "barc4dip_tpu_torch" / "csrc" / "fftp_corr.cu").read_text()
+    assert "int launch_cluster(" in src.split('extern "C" {')[0]
+
+
 def test_contract_line_reports_the_one_card_used(monkeypatch):
     """The last line names one card even where the host has several."""
     import torch

@@ -13,13 +13,16 @@
 //   out[o] = irfft2(F[o / K] * conj(G[g(o)]), s=(H, W))      (numpy irfft)
 //   g(o)   = o % K when the bank is shared by every image, else o
 //
-// Each side is n = 2^a * m with m odd. The kernels are instantiated per a
-// (7..13) and per ODD = (m > 1), and take m at run time: a power-of-two
-// side runs code with its length, T and block shape constant (the code K1
-// had before it took odd sides), an odd one (a <= 11, m <= 63) the
-// runtime-length code with one direct odd stage (stockham_fft.cuh). A
-// transform of length n is held by T = n/16 threads. Pass 1 above 2048 rows
-// is instantiated per (log2 of L's power-of-two part, ODD, Q): 7 kernels.
+// Each side is n = 2^a * m with m odd, and its route is fixed by m, no
+// fallback (split, stockham_fft.cuh): the kernels are instantiated per (a,
+// M). M = 1, a power-of-two side: the code K1 had before it took odd
+// sides. M = m for every 7-smooth m (3, 5, 7, 9, 15, 21, 25, 27, 35, 45,
+// 49, 63), the register route: radix-3/5/7 stages in registers, the
+// length, T and block shape constants. M = 0 for an m with a prime factor
+// of 11 or more, the direct route: one direct m-term stage, m at run time.
+// A transform of length n is held by T = n/16 threads. Pass 1 above 2048
+// rows is instantiated per (log2 of L's power-of-two part, M, Q); 118
+// kernels in all, each (a, M) a side can take and no other.
 //
 // Pass 1 forms F*conj(G) while loading, runs the inverse FFT of length H
 //   down each column k < W/2 and writes the complex mid plane (NB, H, W/2).
@@ -28,12 +31,12 @@
 //   so they share slot 0: Z[m] = Hm(X_0)[m] + i*Hm(X_W/2)[m], Hm(X)[m] =
 //   (X[m] + conj(X[-m]))/2, whose inverse is Re(Y_0) + i*Re(Y_W/2). A static
 //   route by H, no fallback:
-// Pass 1 up to 2048 rows, corr_cols_inverse<a, ODD>: one block per (plane o,
+// Pass 1 up to 2048 rows, corr_cols_inverse<a, M>: one block per (plane o,
 //   C adjacent columns), C = min(1024/T, 64) with T = H/16, so C*T <= 1024
 //   threads (C >= 8 at every H <= 2048). Where C does not divide W/2
 //   (H = 1536: T = 96, C = 10) the last block's columns past W/2 load zeros
 //   and store nothing.
-// Pass 1 above 2048 rows, corr_cols_cluster<logl, ODD, Q, kCC>: there a
+// Pass 1 above 2048 rows, corr_cols_cluster<logl, M, Q, kCC>: there a
 //   column of length H fills H/16 threads, so a block of 1024 would hold
 //   C = 1024/(H/16) <= 5 columns (2 at 8192) and touch 16-40 B of each
 //   spectrum and mid-plane row. Instead a thread-block cluster of Q blocks
@@ -44,13 +47,13 @@
 //   memory with one Q-point DFT a value (the algebra above
 //   corr_cols_cluster). The spectra are still read once and the mid plane
 //   written once.
-// Pass 2, corr_rows_c2r<a, ODD, false>: one block per (plane o, P row pairs),
+// Pass 2, corr_rows_c2r<a, M, false>: one block per (plane o, P row pairs),
 //   P = max(1, 256/T) with T = W/16, P*T threads (at most 512). Where P
 //   does not divide H/2 the last block's pairs past H load zeros and store
 //   nothing. Rebuilds the two Hermitian rows of length W from columns k and
 //   W-k while loading (this needs only 16 | W), packs them as Za + i*Zb into
 //   one complex inverse FFT (both outputs are real), scales by 1/(H*W).
-// Pass 2', corr_rows_c2r<a, ODD, true>: pass 2, then the NCC epilogue of
+// Pass 2', corr_rows_c2r<a, M, true>: pass 2, then the NCC epilogue of
 //   _stage2_ncc_kernel: divide by sqrt(var[f] * energy[g]) (0 where that is
 //   <= eps, decided on var * energy against a threshold the host derives
 //   from eps, so the kernel needs no IEEE square root), -inf where row >= vh
@@ -71,11 +74,13 @@
 // Covered: float32 (complex64 spectra), H and W = 128*k, k = 1..64: the
 // shapes barc4dip_tpu/ops/pallas_fftp.supported takes. Shared memory: at
 // most C*T = 1024 threads' padded exchange slots (139,264 B) plus a twiddle
-// table of at most 8,176 entries (65,408 B) in pass 1 up to 2048 rows,
-// 204,672 B in all, under the 232,448 B a block may opt into; on the
-// cluster route kCC padded columns of length L <= 1008 plus L's stage
-// twiddles, at most 76,608 B a block (the H cross twiddles stay in global
-// memory, read once a value).
+// table of at most 2,032 entries (16,256 B, H = 2048) in pass 1 up to 2048
+// rows, under the 232,448 B a block may opt into; on the cluster route kCC
+// padded columns of length L <= 1008 plus L's stage twiddles (the H cross
+// twiddles stay in global memory, read once a value). The register route's
+// odd twiddles take NP * (m - 1) + N/16 + 16 entries, fewer than the
+// direct route's N: pass 2 at W = 2560 asks for 33,280 B a block of 160
+// threads, not 46,208 B as it did on the direct route.
 //
 // What bounds it on Hopper. At 2048^2 a plane is 16.8 MB of float32 output
 // and 16.8 MB of complex mid plane (2048 x 1024 x 8 B), and each spectrum
@@ -154,18 +159,34 @@ __host__ __device__ constexpr int pairs_per_block(int T) {
 }
 
 // pass 2's block bound: 256 threads for a power-of-two W up to 4096, as
-// before the odd sides, else the 512 that W = 8192 or an odd side may need
+// before the odd sides, else the 512 that W = 8192 or the direct route may
+// need
 __host__ __device__ constexpr int rows_bound(int loga, bool odd) {
   return odd || loga == kMaxLog ? kRowMaxThreads : kRowThreads;
 }
 
-// ODD = (m > 1), H = m << LOGA: a power-of-two H has H, T and C constant
-template <int LOGA, bool ODD>
+// The register route's pass-2 block is a constant, P*T threads, and asks for
+// as many blocks an SM as 64 registers a thread allow: left free, its NCC
+// kernels took 78-86 registers and pass 2' at W = 2560 read 4% slower on
+// an H100 (PERF.md). A minimum of blocks is not a no-op: the power-of-two
+// kernels, given one, took 95-135 registers and read up to 27% slower, so
+// they keep the bound alone.
+__host__ __device__ constexpr int rows_threads(int loga, int M) {
+  return pairs_per_block((M << loga) / kPer) * ((M << loga) / kPer);
+}
+
+__host__ __device__ constexpr int rows_min_blocks(int loga, int M) {
+  return 65536 / (64 * rows_threads(loga, M));
+}
+
+// H = m << LOGA, M as run() takes it: H, T and C are constants but on the
+// direct route (M = 0)
+template <int LOGA, int M>
 __global__ void __launch_bounds__(kColThreads)
 corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
                   float2* __restrict__ mid, const float2* __restrict__ tw, int ntw,
                   int m, int W, int K, int g_shared) {
-  const int H = ODD ? m << LOGA : 1 << LOGA;
+  const int H = (M == 0 ? m : M) << LOGA;
   const int T = H / kPer;
   const int C = cols_per_block(T);
   extern __shared__ float2 sm[];
@@ -184,7 +205,7 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
   // factor (a power-of-two H gives a power of two C <= 64, which divides
   // W/2 = 64k): such a column transforms column 0 and stores nothing, so
   // no load is conditional
-  const bool live = !ODD || k < Wq;
+  const bool live = M == 1 || k < Wq;
   const int kl = live ? k : 0;
   const float2* Fp = F + f * static_cast<size_t>(H) * Wh;
   const float2* Gp = G + g * static_cast<size_t>(H) * Wh;
@@ -225,7 +246,7 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
     }
     __syncthreads();
   }
-  stockham::run<LOGA, ODD, 0>(v, sm + c, stw, t, m, C);
+  stockham::run<LOGA, M, 0>(v, sm + c, stw, t, m, C);
 
   if (live) {
     float2* Mp = mid + static_cast<size_t>(o) * H * Wq;
@@ -234,7 +255,7 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
   }
 }
 
-// Pass 1 above 2048 rows, corr_cols_cluster<LOGL, ODD, Q, CC>. H = Q * L,
+// Pass 1 above 2048 rows, corr_cols_cluster<LOGL, M, Q, CC>. H = Q * L,
 // input row n = j + Q*n2 (j < Q, n2 < L), output row k2 + L*k1 (k2 < L,
 // k1 < Q):
 //   y[k2 + L*k1] = sum_j wQ^(j*k1) * [wH^(j*k2) * Z_j[k2]],
@@ -249,19 +270,22 @@ corr_cols_inverse(const float2* __restrict__ F, const float2* __restrict__ G,
 // read from the ranks' shared memory, one Q-point DFT in registers, Q
 // mid-plane rows written CC columns at a time.
 // __launch_bounds__(kColThreads) holds a thread to 64 registers, so several
-// blocks share an SM: more registers removed the ODD kernels' spills but
-// read slower (k1_passes.py --variants). CC is kCC on the dispatched route.
-template <int LOGL, bool ODD, int Q, int CC>
+// blocks share an SM: more registers removed the odd kernels' spills but
+// read slower, on the direct route (k1_passes.py --variants) and on the
+// register route (at least 4 blocks an SM: pass 1 at 8064 took twice as
+// long; PERF.md). CC is kCC on the dispatched route.
+// M as in corr_cols_inverse, for L's odd factor.
+template <int LOGL, int M, int Q, int CC>
 __global__ void __launch_bounds__(kColThreads)
 corr_cols_cluster(const float2* __restrict__ F, const float2* __restrict__ G,
                   float2* __restrict__ mid, const float2* __restrict__ tw, int m, int W,
                   int K, int g_shared) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  const int L = ODD ? m << LOGL : 1 << LOGL;
+  const int L = (M == 0 ? m : M) << LOGL;
   const int H = Q * L;
   const int T = L / kPer;
-  const int ntw = stockham::tw_count(LOGL, ODD ? m : 1);
+  const int ntw = stockham::route_tw_count(LOGL, M, M == 0 ? m : M);
   extern __shared__ float2 sm[];
   float2* stw = sm + CC * stockham::padded(L);
   stockham::load_twiddles(stw, tw, ntw);
@@ -300,7 +324,7 @@ corr_cols_cluster(const float2* __restrict__ F, const float2* __restrict__ G,
       v[i] = make_float2(p.x - q.y, p.y + q.x);
     }
   }
-  stockham::run<LOGL, ODD, 0>(v, sm + c, stw, t, m, CC);
+  stockham::run<LOGL, M, 0>(v, sm + c, stw, t, m, CC);
 
   __syncthreads();  // every thread is past its last read of the exchange
 #pragma unroll
@@ -347,14 +371,14 @@ __device__ __forceinline__ void seg_best(float& v, int& i, int width) {
   }
 }
 
-template <int LOGA, bool ODD, bool NCC>
-__global__ void __launch_bounds__(rows_bound(LOGA, ODD))
-corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
-              const float2* __restrict__ tw, int ntw, int m, int H, float scale,
-              const float* __restrict__ var, const float* __restrict__ energy,
-              int K, int e_shared, float thr, int vh, int vw,
-              float* __restrict__ rowmax, int* __restrict__ rowarg) {
-  const int W = ODD ? m << LOGA : 1 << LOGA;
+// M as in corr_cols_inverse, for W's odd factor
+template <int LOGA, int M, bool NCC>
+__device__ __forceinline__ void rows_body(const float2* __restrict__ mid, float* __restrict__ out,
+                                          const float2* __restrict__ tw, int ntw, int m, int H, float scale,
+                                          const float* __restrict__ var, const float* __restrict__ energy,
+                                          int K, int e_shared, float thr, int vh, int vw,
+                                          float* __restrict__ rowmax, int* __restrict__ rowarg) {
+  const int W = (M == 0 ? m : M) << LOGA;
   const int T = W / kPer;
   const int P = pairs_per_block(T);
   const int Wq = W / 2;
@@ -370,7 +394,7 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
   // power-of-two W gives a power of two P <= 32, which divides H/2 = 64k):
   // such a pair transforms rows 0 and 1 and stores nothing, so no load is
   // conditional
-  const bool live = !ODD || ra < H;
+  const bool live = M == 1 || ra < H;
   const float2* ma = mid + (static_cast<size_t>(o) * H + (live ? ra : 0)) * Wq;
   const float2* mb = ma + Wq;
 
@@ -403,7 +427,7 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
     }
     v[i] = make_float2(xa.x - xb.y, xa.y + xb.x);
   }
-  stockham::run<LOGA, ODD, 0>(v, sm + p * stockham::padded(W), stw, t, m, 1);
+  stockham::run<LOGA, M, 0>(v, sm + p * stockham::padded(W), stw, t, m, 1);
 
   // thread t holds outputs n = t + i*T of rows ra (x) and ra + 1 (y)
   float* oa = out + (static_cast<size_t>(o) * H + (live ? ra : 0)) * W;
@@ -523,7 +547,38 @@ corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
   }
 }
 
-// n = 2^loga * m with m odd, for n = 128*k, k = 1..64
+template <int LOGA, int M, bool NCC>
+__global__ void __launch_bounds__(rows_bound(LOGA, M != 1))
+corr_rows_c2r(const float2* __restrict__ mid, float* __restrict__ out,
+              const float2* __restrict__ tw, int ntw, int m, int H, float scale,
+              const float* __restrict__ var, const float* __restrict__ energy,
+              int K, int e_shared, float thr, int vh, int vw,
+              float* __restrict__ rowmax, int* __restrict__ rowarg) {
+  rows_body<LOGA, M, NCC>(mid, out, tw, ntw, m, H, scale, var, energy, K, e_shared, thr, vh, vw, rowmax, rowarg);
+}
+
+// the register route's (M > 1): a constant block, at most 64 registers a thread
+template <int LOGA, int M, bool NCC>
+__global__ void __launch_bounds__(rows_threads(LOGA, M), rows_min_blocks(LOGA, M))
+corr_rows_c2r_odd(const float2* __restrict__ mid, float* __restrict__ out,
+                  const float2* __restrict__ tw, int ntw, int m, int H, float scale,
+                  const float* __restrict__ var, const float* __restrict__ energy,
+                  int K, int e_shared, float thr, int vh, int vw,
+                  float* __restrict__ rowmax, int* __restrict__ rowarg) {
+  rows_body<LOGA, M, NCC>(mid, out, tw, ntw, m, H, scale, var, energy, K, e_shared, thr, vh, vw, rowmax, rowarg);
+}
+
+// The cases of a switch over m, one X(L, m) for m = 1 and each register
+// route m (7-smooth) up to the bound in the name; the caller's default is
+// the direct route (M = 0) where m has a prime factor of 11 or more.
+#define K1_ODD_3(X, L) case 1: X(L, 1) case 3: X(L, 3)
+#define K1_ODD_7(X, L) K1_ODD_3(X, L) case 5: X(L, 5) case 7: X(L, 7)
+#define K1_ODD_15(X, L) K1_ODD_7(X, L) case 9: X(L, 9) case 15: X(L, 15)
+#define K1_ODD_27(X, L) K1_ODD_15(X, L) case 21: X(L, 21) case 25: X(L, 25) case 27: X(L, 27)
+#define K1_ODD_63(X, L) K1_ODD_27(X, L) case 35: X(L, 35) case 45: X(L, 45) case 49: X(L, 49) case 63: X(L, 63)
+
+// n = 2^loga * m with m odd, for n = 128*k, k = 1..64; the route of m is
+// stockham::route_of(m)
 bool split(int n, int* loga, int* m) {
   if (n < (1 << kMinLog) || n > kMaxSide || n % (1 << kMinLog) != 0) return false;
   *loga = __builtin_ctz(static_cast<unsigned>(n));
@@ -542,19 +597,21 @@ constexpr int rows_smem(int loga, int m) {
           stockham::tw_count(loga, m)) * static_cast<int>(sizeof(float2));
 }
 
-// the cluster route's, CC columns of length L = m << logl
-constexpr int cluster_smem(int cc, int logl, int m) {
-  return (cc * stockham::padded(m << logl) + stockham::tw_count(logl, m)) *
+// the cluster route's, CC columns of length L = m << logl, on route M
+constexpr int cluster_smem(int cc, int logl, int M, int m) {
+  return (cc * stockham::padded(m << logl) + stockham::route_tw_count(logl, M, m)) *
          static_cast<int>(sizeof(float2));
 }
 
-// the most an instantiation asks for: m = 1, or every odd m > 1 it takes
-constexpr int max_smem(bool cols, int loga, bool odd) {
+// the most an instantiation asks for at sides up to `side`: its own M, or
+// (M = 0) every m of the direct route
+constexpr int max_smem(bool cols, int loga, int M, int side) {
+  if (M != 0) return cols ? cols_smem(loga, M) : rows_smem(loga, M);
   int best = 0;
-  for (int m = odd ? 3 : 1; (m << loga) <= kMaxSide; m += 2) {
+  for (int m = 3; (m << loga) <= side; m += 2) {
+    if (stockham::register_route(m)) continue;
     const int s = cols ? cols_smem(loga, m) : rows_smem(loga, m);
     best = s > best ? s : best;
-    if (!odd) break;
   }
   return best;
 }
@@ -568,43 +625,13 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
-// cudaFuncSetAttribute once per (device, kernel), to the most dynamic shared
-// memory the instantiation may launch with
 constexpr int kMaxDevices = 64;
-constexpr int kKinds = 3;  // cols, rows, rows_ncc
-std::atomic<bool> g_smem_set[kMaxDevices][kKinds][kMaxLog + 1][2];
 
+// A kernel's attributes, once per (device, instantiation): the dynamic
+// shared memory of its largest launch, and a cluster above the portable 8
+// blocks where Q asks for one
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int device, int kind, int loga, bool odd, int smem) {
-  const bool cache = device >= 0 && device < kMaxDevices;
-  if (cache && g_smem_set[device][kind][loga][odd].load(std::memory_order_acquire)) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && cache) g_smem_set[device][kind][loga][odd].store(true, std::memory_order_release);
-  return err;
-}
-
-template <int LOGA, bool ODD>
-int launch_cols(int device, const float2* F, const float2* G, float2* mid,
-                const float2* tw, int ntw, int m, int W, int NB, int K, int g_shared,
-                cudaStream_t stream) {
-  constexpr int kMax = max_smem(true, LOGA, ODD);
-  static_assert(kMax <= kOptInSmem, "pass 1 shared memory");
-  cudaError_t err = allow_smem(corr_cols_inverse<LOGA, ODD>, device, 0, LOGA, ODD, kMax);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int T = (m << LOGA) / kPer;
-  const int C = cols_per_block(T);
-  const dim3 grid(K, (W / 2 + C - 1) / C, NB / K);
-  corr_cols_inverse<LOGA, ODD><<<grid, C * T, cols_smem(LOGA, m), stream>>>(
-      F, G, mid, tw, ntw, m, W, K, g_shared);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A cluster kernel's attributes, once per (device, instantiation): the
-// dynamic shared memory of its largest launch, and a cluster above the
-// portable 8 blocks where Q asks for one
-template <typename Kernel>
-cudaError_t cluster_attrs(Kernel kernel, int device, int smem, int q, std::atomic<bool>* ready) {
+cudaError_t kernel_attrs(Kernel kernel, int device, int smem, int q, std::atomic<bool>* ready) {
   const bool cache = device >= 0 && device < kMaxDevices;
   if (cache && ready[device].load(std::memory_order_acquire)) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -614,21 +641,38 @@ cudaError_t cluster_attrs(Kernel kernel, int device, int smem, int q, std::atomi
   return err;
 }
 
-template <int LOGL, bool ODD, int Q, int CC>
+template <int LOGA, int M>
+int launch_cols(int device, const float2* F, const float2* G, float2* mid,
+                const float2* tw, int ntw, int m, int W, int NB, int K, int g_shared,
+                cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  constexpr int kMax = max_smem(true, LOGA, M, kClusterAbove);
+  static_assert(kMax <= kOptInSmem, "pass 1 shared memory");
+  cudaError_t err = kernel_attrs(corr_cols_inverse<LOGA, M>, device, kMax, 1, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int T = (m << LOGA) / kPer;
+  const int C = cols_per_block(T);
+  const dim3 grid(K, (W / 2 + C - 1) / C, NB / K);
+  corr_cols_inverse<LOGA, M><<<grid, C * T, cols_smem(LOGA, m), stream>>>(
+      F, G, mid, tw, ntw, m, W, K, g_shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOGL, int M, int Q, int CC>
 int launch_cluster(int device, const float2* F, const float2* G, float2* mid,
                    const float2* tw, int m, int W, int NB, int K, int g_shared,
                    cudaStream_t stream) {
   static std::atomic<bool> ready[kMaxDevices];
-  constexpr int kMost = cluster_smem(CC, LOGL, ODD ? (kMaxSide / Q) >> LOGL : 1);
+  constexpr int kMost = cluster_smem(CC, LOGL, M, M == 0 ? (kMaxSide / Q) >> LOGL : M);
   static_assert(kMost <= kOptInSmem, "cluster pass 1 shared memory");
-  const auto kernel = corr_cols_cluster<LOGL, ODD, Q, CC>;
-  cudaError_t err = cluster_attrs(kernel, device, kMost, Q, ready);
+  const auto kernel = corr_cols_cluster<LOGL, M, Q, CC>;
+  cudaError_t err = kernel_attrs(kernel, device, kMost, Q, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int L = m << LOGL;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Q * K, W / 2 / CC, NB / K);
   cfg.blockDim = dim3(CC * L / kPer);
-  cfg.dynamicSmemBytes = cluster_smem(CC, LOGL, m);
+  cfg.dynamicSmemBytes = cluster_smem(CC, LOGL, M, m);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -642,19 +686,24 @@ int launch_cluster(int device, const float2* F, const float2* G, float2* mid,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LOGA, bool ODD, bool NCC>
+template <int LOGA, int M, bool NCC>
 int launch_rows(int device, const float2* mid, float* out, const float2* tw, int ntw,
                 int m, int H, int NB, float scale, const float* var,
                 const float* energy, int K, int e_shared, float thr, int vh,
                 int vw, float* rowmax, int* rowarg, cudaStream_t stream) {
-  constexpr int kMax = max_smem(false, LOGA, ODD);
+  static std::atomic<bool> ready[kMaxDevices];
+  constexpr int kMax = max_smem(false, LOGA, M, kMaxSide);
   static_assert(kMax <= kOptInSmem - 256, "pass 2 shared memory");
-  cudaError_t err = allow_smem(corr_rows_c2r<LOGA, ODD, NCC>, device, NCC ? 2 : 1, LOGA, ODD, kMax);
+  const auto kernel = [] {
+    if constexpr (M > 1) return corr_rows_c2r_odd<LOGA, M, NCC>;
+    else return corr_rows_c2r<LOGA, M, NCC>;
+  }();
+  cudaError_t err = kernel_attrs(kernel, device, kMax, 1, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int T = (m << LOGA) / kPer;
   const int P = pairs_per_block(T);
   const dim3 grid(K, (H / 2 + P - 1) / P, NB / K);
-  corr_rows_c2r<LOGA, ODD, NCC><<<grid, P * T, rows_smem(LOGA, m), stream>>>(
+  kernel<<<grid, P * T, rows_smem(LOGA, m), stream>>>(
       mid, out, tw, ntw, m, H, scale, var, energy, K, e_shared, thr, vh, vw, rowmax, rowarg);
   return static_cast<int>(cudaGetLastError());
 }
@@ -676,17 +725,19 @@ int rows_dispatch(int device, const void* mid, void* out, const void* tw,
   const auto* en = static_cast<const float*>(energy);
   auto* rm = static_cast<float*>(rowmax);
   auto s = static_cast<cudaStream_t>(stream);
-#define K1_ROWS(L, ODD)                                                                  \
-  return launch_rows<L, ODD, NCC>(device, mp, o, w, ntw, m, H, NB, scale, vr, en, K,     \
-                                  e_shared, thr, vh, vw, rm, rowarg, s);
-  switch (loga) {
-    case 7: if (m > 1) { K1_ROWS(7, true) } K1_ROWS(7, false)
-    case 8: if (m > 1) { K1_ROWS(8, true) } K1_ROWS(8, false)
-    case 9: if (m > 1) { K1_ROWS(9, true) } K1_ROWS(9, false)
-    case 10: if (m > 1) { K1_ROWS(10, true) } K1_ROWS(10, false)
-    case 11: if (m > 1) { K1_ROWS(11, true) } K1_ROWS(11, false)
-    case 12: K1_ROWS(12, false)
-    case 13: K1_ROWS(13, false)
+#define K1_ROWS(L, M)                                                                    \
+  return launch_rows<L, M, NCC>(device, mp, o, w, ntw, m, H, NB, scale, vr, en, K,       \
+                                e_shared, thr, vh, vw, rm, rowarg, s);
+  switch (loga) {  // m < 2^(13 - loga): the register route's m, else direct
+    case 7: switch (m) { K1_ODD_63(K1_ROWS, 7) default: K1_ROWS(7, 0) }
+    case 8: switch (m) { K1_ODD_27(K1_ROWS, 8) default: K1_ROWS(8, 0) }
+    case 9: switch (m) { K1_ODD_15(K1_ROWS, 9) default: K1_ROWS(9, 0) }
+    case 10: switch (m) { K1_ODD_7(K1_ROWS, 10) }
+      break;
+    case 11: switch (m) { K1_ODD_3(K1_ROWS, 11) }
+      break;
+    case 12: K1_ROWS(12, 1)
+    case 13: K1_ROWS(13, 1)
   }
 #undef K1_ROWS
   return static_cast<int>(cudaErrorInvalidValue);
@@ -722,30 +773,48 @@ int fftp_corr_cols(int device, const void* F, const void* G, void* mid,
   const auto* w = static_cast<const float2*>(tw);
   auto s = static_cast<cudaStream_t>(stream);
   if (cluster) {  // a static route by H, no fallback: H = Q * L, L = m << logl
-#define K1_CLUSTER(LL, ODD, Q) return launch_cluster<LL, ODD, Q, kCC>(device, f, g, mp, w, m, W, NB, K, g_shared, s);
-    if (cluster_ranks(H) == 8) {  // H = 128 * k, k odd: L = 16 * k
-      K1_CLUSTER(4, true, 8)
+#define K1_CLUSTER(LL, M, Q) return launch_cluster<LL, M, Q, kCC>(device, f, g, mp, w, m, W, NB, K, g_shared, s);
+#define K1_Q8(L, M) K1_CLUSTER(L, M, 8)
+#define K1_Q16(L, M) K1_CLUSTER(L, M, 16)
+    if (cluster_ranks(H) == 8) {  // H = 128 * k, k odd (17..63): L = 16 * k
+      switch (m) {
+        case 21: K1_Q8(4, 21) case 25: K1_Q8(4, 25) case 27: K1_Q8(4, 27) case 35: K1_Q8(4, 35)
+        case 45: K1_Q8(4, 45) case 49: K1_Q8(4, 49) case 63: K1_Q8(4, 63)
+        default: K1_Q8(4, 0)
+      }
     }
     switch (logl) {  // H = 256 * k: L = 16 * k, k = 9..32
-      case 4: K1_CLUSTER(4, true, 16)
-      case 5: K1_CLUSTER(5, true, 16)
-      case 6: K1_CLUSTER(6, true, 16)
-      case 7: K1_CLUSTER(7, true, 16)
-      case 8: K1_CLUSTER(8, false, 16)
-      case 9: K1_CLUSTER(9, false, 16)
+      case 4: switch (m) {
+          case 9: K1_Q16(4, 9) case 15: K1_Q16(4, 15) case 21: K1_Q16(4, 21) case 25: K1_Q16(4, 25)
+          case 27: K1_Q16(4, 27) default: K1_Q16(4, 0)
+        }
+      case 5: switch (m) {
+          case 5: K1_Q16(5, 5) case 7: K1_Q16(5, 7) case 9: K1_Q16(5, 9) case 15: K1_Q16(5, 15)
+          default: K1_Q16(5, 0)
+        }
+      case 6: switch (m) {
+          case 3: K1_Q16(6, 3) case 5: K1_Q16(6, 5) case 7: K1_Q16(6, 7)
+        }
+        break;
+      case 7: if (m == 3) { K1_Q16(7, 3) }
+        break;
+      case 8: K1_Q16(8, 1)
+      case 9: K1_Q16(9, 1)
     }
+#undef K1_Q16
+#undef K1_Q8
 #undef K1_CLUSTER
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define K1_COLS(L, ODD) return launch_cols<L, ODD>(device, f, g, mp, w, ntw, m, W, NB, K, g_shared, s);
-  switch (loga) {
-    case 7: if (m > 1) { K1_COLS(7, true) } K1_COLS(7, false)
-    case 8: if (m > 1) { K1_COLS(8, true) } K1_COLS(8, false)
-    case 9: if (m > 1) { K1_COLS(9, true) } K1_COLS(9, false)
-    case 10: if (m > 1) { K1_COLS(10, true) } K1_COLS(10, false)
-    case 11: if (m > 1) { K1_COLS(11, true) } K1_COLS(11, false)
-    case 12: K1_COLS(12, false)
-    case 13: K1_COLS(13, false)
+#define K1_COLS(L, M) return launch_cols<L, M>(device, f, g, mp, w, ntw, m, W, NB, K, g_shared, s);
+  switch (loga) {  // H <= 2048: m < 2^(11 - loga)
+    case 7: switch (m) { K1_ODD_15(K1_COLS, 7) default: K1_COLS(7, 0) }
+    case 8: switch (m) { K1_ODD_7(K1_COLS, 8) }
+      break;
+    case 9: switch (m) { K1_ODD_3(K1_COLS, 9) }
+      break;
+    case 10: K1_COLS(10, 1)
+    case 11: K1_COLS(11, 1)
   }
 #undef K1_COLS
   return static_cast<int>(cudaErrorInvalidValue);

@@ -10,6 +10,12 @@ epilogue) run the register-resident Stockham FFT of
 twiddle tables this module makes (:func:`radix_plan`,
 :func:`stage_twiddles`, :func:`column_twiddles`).
 
+A side's odd factor m takes one of two routes, fixed by m: every 7-smooth
+m (the odd part of every sensor side) runs radix-7/5/3 stages in registers
+(:func:`odd_radices`); an m with a prime factor of 11 or more (1408, 1664,
+2176, ...) keeps one direct m-term stage. Neither is a fallback for the
+other: a CUDA tensor of a covered shape runs its side's route or raises.
+
 Pass 1 takes one of two routes, fixed by H. Up to ``CLUSTER_ABOVE`` = 2048
 rows a block transforms 8 to 64 whole columns of length H, and is bound by
 its strided reads of 64 B or more of each spectrum row. Above 2048 rows a
@@ -65,6 +71,7 @@ __all__ = [
     "corr_from_rfft_plain",
     "ncc_masked_peaks",
     "ncc_masked_peaks_plain",
+    "odd_radices",
     "radix_plan",
     "reset_counts",
     "sqrt_threshold",
@@ -117,33 +124,68 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def odd_radices(m: int) -> list[int] | None:
+    """The register route's radices for odd ``m``, as the source factors it
+    (``stockham::odd_radix``): 7s, then 5s, then 3s ([] for m = 1); None
+    where m has a prime factor of 11 or more, the direct route's m."""
+    m = int(m)
+    out = []
+    for p in (7, 5, 3):
+        while m % p == 0:
+            out.append(p)
+            m //= p
+    return out if m == 1 else None
+
+
 def radix_plan(n: int) -> list[int]:
-    """Stage radices of the kernel's length-``n`` transform
-    (``csrc/stockham_fft.cuh``), n = 2^a * m with m odd: 16 for every
-    power-of-two stage but the last, whose radix is 2^(a mod 4) when that is
-    not 1, then m when m > 1."""
+    """Stage radices of the kernel's length-``n`` transform in the order it
+    runs them (``csrc/stockham_fft.cuh``), n = 2^a * m with m odd. The
+    power of two: 16 for every stage but the last, whose radix is
+    2^(a mod 4) when that is not 1. On the register route (:func:`odd_radices`
+    of m is a list) the odd radices run before the last power-of-two stage;
+    on the direct route m itself runs last, one stage."""
     a = (int(n) & -int(n)).bit_length() - 1
     m = int(n) >> a
-    return [16] * (a // 4) + ([1 << (a % 4)] if a % 4 else []) + ([m] if m > 1 else [])
+    odd = odd_radices(m)
+    pow2 = [16] * (a // 4) + ([1 << (a % 4)] if a % 4 else [])
+    if odd is None:
+        return pow2 + [m]
+    return pow2[:-1] + odd + pow2[-1:]
 
 
 def stage_twiddles(n: int) -> np.ndarray:
-    """The kernel's twiddle table for length ``n``, complex128: for each
-    power-of-two stage s >= 1 (Ns = 16^s inputs combined so far, radix R),
-    entry (q - 1)*Ns + k of its part is exp(+2*pi*i*q*k/(Ns*R)),
-    q = 1..R-1; then, when n has an odd factor m > 1, the n entries
-    exp(+2*pi*i*r/n), r < n, of the odd stage (its stage twiddle and m-point
-    DFT in one factor)."""
-    plan = radix_plan(n)
-    odd = plan[-1] if plan[-1] % 2 else 1
-    parts, ns = [], 1
-    for s, r in enumerate(plan[: len(plan) - (odd > 1)]):
+    """The kernel's twiddle table for length ``n`` = 2^a * m, complex128, the
+    parts in stage order: for a stage (Ns inputs combined so far, radix R)
+    entry (q - 1)*Ns + k of its part is exp(+2*pi*i*q*k/(Ns*R)), k < Ns,
+    q = 1..R-1. Parts: each power-of-two stage but stage 0; then, when
+    m > 1, on the direct route the n entries exp(+2*pi*i*r/n) (its stage
+    twiddle and m-point DFT in one factor). On the register route the last
+    power-of-two stage has no part: the odd stages' parts follow the others
+    (NP * (m - 1) entries in all, NP the values combined before them), then
+    two short tables whose products give the last stage's exp(+2*pi*i*r/n),
+    r < n: hi, the n/16 entries exp(+2*pi*i*h*16/n), then lo, the 16
+    entries exp(+2*pi*i*l/n)."""
+    a = (int(n) & -int(n)).bit_length() - 1
+    m = int(n) >> a
+    pow2, odd = radix_plan(1 << a), odd_radices(m)
+    register = m > 1 and odd is not None
+
+    def part(ns, r):
+        q = np.arange(1, r)[:, None]
+        k = np.arange(ns)[None, :]
+        return np.exp(2j * np.pi * (q * k) / (ns * r)).ravel()
+
+    parts, ns = [np.zeros(0, complex)], 1
+    for s, r in enumerate(pow2[:-1] if register else pow2):
         if s:
-            q = np.arange(1, r)[:, None]
-            k = np.arange(ns)[None, :]
-            parts.append(np.exp(2j * np.pi * (q * k) / (ns * r)).ravel())
+            parts.append(part(ns, r))
         ns *= r
-    if odd > 1:
+    if register:
+        for r in odd:
+            parts.append(part(ns, r))
+            ns *= r
+        parts += [np.exp(2j * np.pi * np.arange(n // 16) * 16 / n), np.exp(2j * np.pi * np.arange(16) / n)]
+    elif m > 1:
         parts.append(np.exp(2j * np.pi * np.arange(n) / n))
     return np.concatenate(parts)
 

@@ -21,7 +21,8 @@ Phases, one line each with its wall time:
    it; then at the sides off the powers of two: K1a B=1 at 1536^2,
    ``autocorr2d``'s layout, B=4 at 3072^2 and B=1 at 8192^2 and at 2560 x
    2048 (H = 2560) on frames made on the card, K1b's 9-template bank on the
-   coverage stack at 2048 x 2560; then Config D's layouts on the 4096^2
+   coverage stack at 2048 x 2560, K1a B=1 at 8064^2 and B=4 at 2304 x 4096
+   (odd factors 63 and 9); then Config D's layouts on the 4096^2
    stack of phase 4b, K1a B=4 and K1b B=36: pass 1 above 2048 rows runs on
    thread-block clusters), timed with
    CUDA events (median of 10 single calls) beside the library call (cuFFT's
@@ -52,7 +53,10 @@ Phases, one line each with its wall time:
    1536^2 through K1a (against float64, ns a pixel beside 2048^2 and beside
    the plain path's PR 8 reading), ``spectral_summary_stack`` of 4 x 3072^2
    CUDA frames in one chunk, ``signal.autocorr2d`` at 8192^2 and of frame 0
-   on its side (2560 x 2048, against float64): one K1a each, no plain call;
+   on its side (2560 x 2048, against float64), ``signal.autocorr2d`` at
+   8064^2 (odd factor 63) and ``spectral_summary_stack`` of 4 x 2304 x 4096
+   (a qCMOS sensor's frames, H = 9 * 256), both against float64: one K1a
+   each, no plain call;
 4b. coverage-4096: ``speckle_stack_stats`` at Config D's settings on 8
    frames of 4096^2 uint16 (a 16-Mpx detector), spiral motion, seed 1234,
    run twice, the second counted: one K1a and two K1b a chunk through the
@@ -299,6 +303,11 @@ MID_SIDE, WIDE_SIDE, WIDE_B, HUGE_SIDE = 1536, 3072, 4, 8192
 # 16-Mpx (4096^2) detector, and one frame of TALL_SHAPE (a 2560-column
 # sensor mounted on its side: H = 2560)
 BIG_T, BIG_SHAPE, TALL_SHAPE = 8, (4096, 4096), (2560, 2048)
+# K1's odd factors at both ends of the register route: one frame at
+# ODD_HUGE_SIDE^2 (8064 = 63 * 128, the largest odd factor a side has) and a
+# chunk of QCMOS_B frames of QCMOS_SHAPE (a 4096 x 2304 qCMOS sensor, ORCA-Quest
+# class: H = 2304 = 9 * 256)
+ODD_HUGE_SIDE, QCMOS_SHAPE, QCMOS_B = 8064, (2304, 4096), 4
 # PR 8's signal.autocorr2d at 1536^2 on the plain path (ns a pixel, NVIDIA
 # H100 80GB HBM3, 700.00 W), the number the kernel path is logged beside
 PLAIN_1536_NS_PER_PX = 0.4031
@@ -1720,7 +1729,8 @@ def check_kernels_sides(torch, dev, stack, cov: dict, big: dict, card: str) -> l
     """K1 at sides off the powers of two and above 2048 rows, against the
     plain versions: K1a B=1 at MID_SIDE^2 (frame 0's centre crop,
     ``signal.autocorr2d``'s layout), B=WIDE_B at WIDE_SIDE^2 (a
-    ``spectral_summary_stack`` chunk), B=1 at HUGE_SIDE^2 and at TALL_SHAPE,
+    ``spectral_summary_stack`` chunk), B=1 at HUGE_SIDE^2, at TALL_SHAPE
+    and at ODD_HUGE_SIDE^2, B=QCMOS_B at QCMOS_SHAPE (a chunk again),
     B=FRAME_CHUNK on the 4096^2 stack (its full-frame grain); K1b's
     9-template bank on the coverage stack (B=9) and on FRAME_CHUNK frames of
     the 4096^2 stack (B=36, Config D's tracker). Each row names the coverage
@@ -1736,9 +1746,12 @@ def check_kernels_sides(torch, dev, stack, cov: dict, big: dict, card: str) -> l
     rows.append({**k1a_row(torch, "B=1", F, F[:, None], 1, (MID_SIDE, MID_SIDE), card),
                  "path": f"autocorr2d {MID_SIDE}"})
     th, tw = TALL_SHAPE
+    qh, qw = QCMOS_SHAPE
     for nf, (h, w), path in ((WIDE_B, (WIDE_SIDE, WIDE_SIDE), f"spectral_summary_stack {WIDE_SIDE}"),
                              (1, (HUGE_SIDE, HUGE_SIDE), f"autocorr2d {HUGE_SIDE}"),
-                             (1, TALL_SHAPE, f"autocorr2d {th}x{tw}")):
+                             (1, TALL_SHAPE, f"autocorr2d {th}x{tw}"),
+                             (1, (ODD_HUGE_SIDE, ODD_HUGE_SIDE), f"autocorr2d {ODD_HUGE_SIDE}"),
+                             (QCMOS_B, QCMOS_SHAPE, f"spectral_summary_stack {qh}x{qw}")):
         F = torch.fft.rfft2(corrcore._precondition(device_speckle(torch, dev, nf, h, w, SEED + h), True, False))
         rows.append({**k1a_row(torch, f"B={nf}", F, F[:, None], nf, (h, w), card), "path": path})
         del F
@@ -1884,6 +1897,27 @@ def run_coverage(torch, dev, cov: dict, card: str) -> dict:
         f"vs float64; {card}")
     if not t_err <= RTOL:
         raise AssertionError(f"autocorr2d at {th}x{tw} vs float64: {t_err:.3e}")
+    del tall, tac
+    # the odd factors 63 (8064^2) and 9 (a qCMOS chunk, H = 2304) against float64
+    odd = device_speckle(torch, dev, 1, ODD_HUGE_SIDE, ODD_HUGE_SIDE, SEED + ODD_HUGE_SIDE)[0]
+    oac = counted(f"autocorr2d {ODD_HUGE_SIDE}", lambda: signal.autocorr2d(odd))[0]
+    o_err = leaf_rel_err(oac.cpu().numpy(), signal.autocorr2d(odd.double())[0].cpu().numpy())
+    o_ms = time_ms(torch, lambda: signal.autocorr2d(odd))
+    del odd, oac
+    qh, qw = QCMOS_SHAPE
+    q = device_speckle(torch, dev, QCMOS_B, qh, qw, SEED + qh)
+    qs = counted(f"spectral_summary_stack {qh}x{qw}", lambda: signal.spectral_summary_stack(q, frame_chunk=QCMOS_B))
+    q1 = signal.spectral_summary(q[1].double())
+    q_err = leaf_rel_err(np.asarray(qs["radial_interpolated"][1]), np.asarray(q1["radial_interpolated"]))
+    q_ms = time_ms(torch, lambda: signal.spectral_summary_stack(q, frame_chunk=QCMOS_B))
+    log(f"signal.autocorr2d at {ODD_HUGE_SIDE}^2: {o_ms:.3f} ms = {o_ms / ODD_HUGE_SIDE**2 * 1e6:.4f} ns a pixel, "
+        f"max rel err {o_err:.3e} vs float64; spectral_summary_stack of {QCMOS_B} x {qh} x {qw} CUDA frames at "
+        f"frame_chunk {QCMOS_B}: {q_ms:.3f} ms, frame 1's interpolated curve {q_err:.3e} from a float64 call; "
+        f"one K1a each, no plain call; {card}")
+    if not (o_err <= RTOL and q_err <= RTOL):
+        raise AssertionError(f"autocorr2d at {ODD_HUGE_SIDE}^2 / spectral_summary_stack at {qh}x{qw} vs float64: "
+                             f"{o_err:.3e} / {q_err:.3e}")
+    del q
     torch.cuda.empty_cache()
     return res
 

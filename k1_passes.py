@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 # SPDX-License-Identifier: CECILL-2.1
 """Device time of kernel K1 by pass, at the layouts whose pass 1 runs above
-2048 rows and at Config D's 2048^2 layouts, on one NVIDIA GPU.
+2048 rows, at Config D's 2048^2 layouts and at sides with an odd factor, on
+one NVIDIA GPU.
 
     python3 k1_passes.py [--root DIR] [--label NAME]
     python3 k1_passes.py --variants
@@ -49,6 +50,12 @@ LAYOUTS = [
     ("K1b", 4096, 4096, 4, 9),
     ("K1a", 2048, 2048, 4, 1),
     ("K1b", 2048, 2048, 4, 9),
+    # sides with an odd factor m: 3 (1536), 5 (2560 columns), 63 (8064), 9
+    # (2304 rows, a qCMOS sensor's frame)
+    ("K1a", 1536, 1536, 1, 1),
+    ("K1b", 2048, 2560, 1, 9),
+    ("K1a", 8064, 8064, 1, 1),
+    ("K1a", 2304, 4096, 4, 1),
 ]
 
 
@@ -74,7 +81,7 @@ int variant_cols(int device, const void* F, const void* G, void* mid, const void
                  int NB, int K, void* stream) {
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_cluster<VAR_LOGL, VAR_ODD, VAR_Q, VAR_CC>(
+  return launch_cluster<VAR_LOGL, VAR_M, VAR_Q, VAR_CC>(
       device, static_cast<const float2*>(F), static_cast<const float2*>(G), static_cast<float2*>(mid),
       static_cast<const float2*>(tw), m, W, NB, K, 0, static_cast<cudaStream_t>(stream));
 }
@@ -87,6 +94,8 @@ def build_variants(nvcc_mod) -> dict:
     import os
     from concurrent.futures import ThreadPoolExecutor
 
+    from barc4dip_tpu_torch.ops.cuda_fftp import odd_radices
+
     src = (nvcc_mod.CSRC / "fftp_corr.cu").read_text()
     src = src[: src.index('extern "C" {')] + _VARIANT_ENTRY
     out_dir = nvcc_mod.BUILD_DIR.parent / "k1_variants"
@@ -96,10 +105,12 @@ def build_variants(nvcc_mod) -> dict:
         for Q, CC in plans:
             L = H // Q
             loga = (L & -L).bit_length() - 1
+            m = L >> loga
             stem = f"v{H}_{Q}_{CC}"
             cu = out_dir / f"{stem}.cu"
             cu.write_text(src)
-            defs = [f"-DVAR_LOGL={loga}", f"-DVAR_ODD={'true' if L >> loga > 1 else 'false'}",
+            # M as the source's route_of(m) gives it: m, or 0 on the direct route
+            defs = [f"-DVAR_LOGL={loga}", f"-DVAR_M={m if odd_radices(m) is not None else 0}",
                     f"-DVAR_Q={Q}", f"-DVAR_CC={CC}"]
             cmd = [nvcc_mod._nvcc(), *nvcc_mod.NVCC_FLAGS, f"-I{nvcc_mod.CSRC}", *defs,
                    "-o", str(out_dir / f"lib{stem}.so"), str(cu)]

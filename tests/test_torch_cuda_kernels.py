@@ -179,12 +179,15 @@ def test_ncc_random_spectra_vs_numpy(dev, h, w, shared):
     _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
 
 
-# a side of each class of the 128*k gate: odd factors 3, 5, 7, 11 (the
-# generic odd stage of csrc/stockham_fft.cuh) and 63, the power-of-two tail
-# at 8192, ragged pass-1 column groups (1536: 10 columns a block) and pass-2
-# row-pair groups, and NCC row pairs that straddle warps (W = 640, 896)
+# a side of each class of the 128*k gate: odd factors 3, 5, 7, 11 and 63, the
+# power-of-two tail at 8192, ragged pass-1 column groups (1536: 10 columns a
+# block) and pass-2 row-pair groups, and NCC row pairs that straddle warps
+# (W = 640, 896); then each odd factor of the register route on both passes
+# (7: 1792, 9: 1152 and 2304, 15: 1920, 25: 3200, 27: 3456, 45: 5760, 49:
+# 6272, 63: 8064) and the direct route's 11 on pass 2 (1408)
 MIXED_SHAPES = [(384, 640), (1536, 1536), (2048, 2560), (3072, 3072), (1408, 896), (8064, 128),
-                (128, 8192), (8192, 8192)]
+                (128, 8192), (8192, 8192), (1792, 1152), (1152, 1792), (1920, 1920), (2304, 2304),
+                (3200, 3456), (3456, 3200), (5760, 6272), (6272, 5760), (128, 8064), (896, 1408)]
 
 
 def _mixed_batch(h, w):
@@ -220,12 +223,17 @@ def test_ncc_mixed_radix_vs_numpy(dev, h, w):
 
 
 # pass 1 above 2048 rows, on thread-block clusters, one shape at least for
-# each instantiation: 8 blocks a cluster at 2176 = 8 * 272 (odd factor 17),
-# 16 at 2304 = 16 * 144 (odd factor 9, partial warps), 2560, 3072, 6144
-# (odd factors 5, 3, 3) and the powers of two; narrow and square planes,
-# several images and templates where the planes are small
+# each instantiation: 8 blocks a cluster at 2176 = 8 * 272 (odd factor 17,
+# the direct route), 16 at 2304 = 16 * 144 (odd factor 9, partial warps),
+# 2560, 3072, 6144 (odd factors 5, 3, 3) and the powers of two; narrow and
+# square planes, several images and templates where the planes are small;
+# then, 128 columns wide, each other register-route instantiation (m = 7,
+# 15, 21, 25, 27, 35, 45, 49, 63 and 5, 9, 15 at longer L) and the direct
+# route with 16 blocks (2816 = 11 * 256, 5632 = 11 * 512)
 CLUSTER_SHAPES = [(2176, 384), (2304, 640), (2560, 512), (3072, 3072), (4096, 4096), (6144, 256),
-                  (8192, 128), (8192, 8192)]
+                  (8192, 128), (8192, 8192)] + [
+    (h, 128) for h in (2688, 2816, 3200, 3456, 3584, 3840, 4480, 4608, 5120, 5376, 5632, 5760, 6272, 6400,
+                       6912, 7168, 7680, 8064)]
 
 
 def _cluster_batch(h, w):
@@ -253,6 +261,44 @@ def test_ncc_cluster_route_vs_numpy(dev, h, w, shared):
     F, G, var, en = _ncc_inputs(h, w, nf, k, shared, seed=11 * h + w)
     _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
     assert not cuda_fftp.PLAIN_BY_SHAPE
+
+
+# every side of the gate on each pass, the other side 128: each
+# instantiation of csrc/fftp_corr.cu (power of two, register route, direct
+# route; pass 1 whole columns or clusters, pass 2 and 2') runs at least once
+SIDES = [128 * k for k in range(1, 65)]
+
+
+@pytest.mark.parametrize("n", SIDES)
+def test_corr_every_side_vs_numpy(dev, n):
+    for h, w in ((n, 128), (128, n)):
+        F, G = _random_spectra(h, w, 2, 2, True, seed=n + h)
+        cuda_fftp.reset_counts()
+        got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
+        assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+        want = _corr_ref(F, G, h, w)
+        assert np.abs(got.cpu().numpy() - want).max() <= ATOL_REL * np.abs(want).max(), (h, w)
+
+
+@pytest.mark.parametrize("n", SIDES)
+def test_ncc_every_side_vs_numpy(dev, n):
+    for h, w in ((n, 128), (128, n)):
+        F, G, var, en = _ncc_inputs(h, w, 2, 2, False, seed=3 * n + h)
+        _check_ncc(dev, F, G, var, en, h, w, h - 7, w - 5)
+        assert not cuda_fftp.PLAIN_BY_SHAPE
+
+
+@pytest.mark.parametrize("h, w", [(1536, 2560), (8064, 640), (2304, 4096)])
+def test_ncc_odd_sides_nan_spectra_and_masked_rows(dev, h, w):
+    """On the register route (m = 3 and 5, 63, 9 on pass 1): NaN in one
+    image's spectrum makes its planes NaN wherever the denominator is > eps,
+    ranked highest; rows at or past vh are -inf throughout."""
+    F, G, var, en = _ncc_inputs(h, w, 2, 2, True, seed=h + w)
+    F[1, 3, 5] = np.nan
+    vh = h // 3
+    maps = _check_ncc(dev, F, G, var, en, h, w, vh, w - 9)
+    assert np.isneginf(maps[:, :, vh:]).all()
+    assert np.isnan(maps[1]).any() and not np.isnan(maps[0]).any()
 
 
 @pytest.mark.parametrize("vh, vw", [(100, 200), (0, 256), (4096, 1)])

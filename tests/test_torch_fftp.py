@@ -179,18 +179,113 @@ def _register_dft(a):
     return a
 
 
+def _odd_butterfly(a):
+    """The kernel's in-register R-point inverse DFT of a[..., q], q < R = 3,
+    5, 7 (stockham::dft_odd): s_k = a[k] + a[R-k], d_k = a[k] - a[R-k],
+    outputs p and R - p = a[0] + sum_k cos(2*pi*k*p/R) s_k +- i sum_k
+    sin(2*pi*k*p/R) d_k."""
+    R = a.shape[-1]
+    h = R // 2
+    s = [a[..., k] + a[..., R - k] for k in range(1, h + 1)]
+    d = [a[..., k] - a[..., R - k] for k in range(1, h + 1)]
+    out = np.empty_like(a)
+    out[..., 0] = a[..., 0] + sum(s)
+    for p in range(1, h + 1):
+        re = a[..., 0] + sum(np.cos(2 * np.pi * k * p / R) * s[k - 1] for k in range(1, h + 1))
+        im = sum(np.sin(2 * np.pi * k * p / R) * d[k - 1] for k in range(1, h + 1))
+        out[..., p] = re + 1j * im
+        out[..., R - p] = re - 1j * im
+    return out
+
+
+def _rev_digits(kd, odd, upto):
+    """stockham::rev_digits: odd digits 0..upto-1 of kd (least significant
+    first, radix odd[l]), digit l placed at m / (odd[0] * ... * odd[l]); the
+    last digit taken whole."""
+    m = int(np.prod(odd))
+    out, pre = 0, 1
+    for lv in range(upto):
+        pre *= odd[lv]
+        out = out + (kd if lv == upto - 1 else kd % odd[lv]) * (m // pre)
+        kd = kd // odd[lv]
+    return out
+
+
+def _pows(hi, lo, r, R):
+    """stockham::twiddle's w^q, q < R, w = exp(2*pi*i*r/n): each w^(2^b)
+    from the tables at e = r * 2^b (hi[e >> 4] * lo[e mod 16]), w^q the
+    product of those of q's bits."""
+    base = [hi[(r << b) >> 4] * lo[(r << b) & 15] for b in range(4) if 1 << b < R]
+    out = [np.ones_like(r, complex)]
+    for q in range(1, R):
+        out.append(np.prod([base[b] for b in range(4) if q >> b & 1], axis=0))
+    return np.stack(out, -1)
+
+
+def _register_route(y, n, tw, off):
+    """The register route after the power-of-two stages but the last (the
+    exchange y (..., n) holds their output, slot = logical index): the odd
+    stages in place (slot of logical b*Ns + k = (b + PL * rev(k / NP)) * NP
+    + k mod NP; stage twiddles from the stage's part of the table), then the
+    last power-of-two stage (radix PL) reads v[t, i] = input t + i*T
+    through that permutation, twiddles butterfly j by exp(2*pi*i*q*j/n)
+    from hi and lo and leaves its outputs in natural order. Each odd stage's
+    butterflies touch each slot once."""
+    a = (n & -n).bit_length() - 1
+    m, T = n >> a, n // 16
+    odd = cuda_fftp.odd_radices(m)
+    pow2 = cuda_fftp.radix_plan(1 << a)
+    PL, NP = pow2[-1], (1 << a) // pow2[-1]
+    hi = tw[off + NP * (m - 1) : off + NP * (m - 1) + n // 16]
+    lo = tw[off + NP * (m - 1) + n // 16 : off + NP * (m - 1) + n // 16 + 16]
+    assert lo.size == 16
+    t = np.arange(T)
+    y = y.copy()
+    for I, R in enumerate(odd):
+        pre = int(np.prod(odd[:I]))
+        NS, span, NB = NP * pre, PL * m // (pre * R), n // R
+        part = tw[off + NP * (pre - 1) : off + NP * (pre - 1) + (R - 1) * NS]
+        seen = np.zeros(n, int)
+        for u in range(-(-NB // T)):  # j = t + u*T, the last turn for the first threads only
+            j = t + u * T
+            j = j[j < NB]
+            k = j % NS
+            base = (j // NS + PL * _rev_digits(k // NP, odd, I)) * NP + (k & (NP - 1))
+            slot = base[:, None] + np.arange(R)[None, :] * span * NP
+            seen[slot] += 1
+            w = np.stack([np.ones(k.shape, complex)] + [part[(q - 1) * NS + k] for q in range(1, R)], -1)
+            y[..., slot] = _odd_butterfly(y[..., slot] * w)
+        assert (seen == 1).all()
+    n_in = t[:, None] + np.arange(16)[None, :] * T
+    nd = n_in // NP
+    v = y[..., (nd // m + PL * _rev_digits(nd % m, odd, len(odd))) * NP + (n_in & (NP - 1))]
+    MU = 16 // PL
+    for u in range(MU):
+        cols = u + MU * np.arange(PL)
+        v[..., cols] = _register_dft(v[..., cols] * _pows(hi, lo, t + u * T, PL))
+    return v, off + NP * (m - 1) + hi.size + lo.size
+
+
 def _stages(v, n):
     """stockham::run from the register state v (..., T, 16) of stage 0's
-    input to that of the output: out[t + i*T] = v[t, i]."""
+    input to that of the output: out[t + i*T] = v[t, i]. The odd factor m
+    runs on its route: the register radices of odd_radices(m) between the
+    last two power-of-two stages (radix_plan of 2^a), or the direct stage
+    after them."""
     T = n // 16
     t = np.arange(T)
     slots = t[:, None] + np.arange(16)[None, :] * T
     tw = cuda_fftp.stage_twiddles(n)
-    plan = cuda_fftp.radix_plan(n)
-    odd = plan[-1] if plan[-1] % 2 else 1
+    a = (n & -n).bit_length() - 1
+    plan = cuda_fftp.radix_plan(1 << a)
+    odd = n >> a
+    register = odd > 1 and cuda_fftp.odd_radices(odd) is not None
     ns, off = 1, 0
     v = v.copy()
-    for s, r in enumerate(plan[: len(plan) - (odd > 1)]):
+    if register and len(plan) == 1:  # one power-of-two stage: the odd stages first
+        v, off = _register_route(_unload(v, n), n, tw, off)
+        plan = []
+    for s, r in enumerate(plan):
         M = 16 // r
         for m in range(M):
             if s:
@@ -201,6 +296,14 @@ def _stages(v, n):
             v[..., cols] = _register_dft(v[..., cols])
         if s:
             off += (r - 1) * ns
+        if register and s + 2 == len(plan):  # the exchange, then the odd stages and the last stage
+            y = np.empty(v.shape[:-2] + (n,), complex)
+            for m in range(M):
+                j = t + m * T
+                for q in range(r):
+                    y[..., (j // ns) * ns * r + j % ns + q * ns] = v[..., m + q * M]
+            v, off = _register_route(y, n, tw, off)
+            break
         if ns * r < n:  # the exchange through shared memory
             y = np.empty(v.shape[:-2] + (n,), complex)
             for m in range(M):
@@ -210,7 +313,7 @@ def _stages(v, n):
                     y[..., base + q * ns] = v[..., m + q * M]
             v = y[..., slots]
         ns *= r
-    if odd > 1:  # the odd stage: direct m-term sums out of the exchange
+    if odd > 1 and not register:  # the direct stage: m-term sums out of the exchange
         y = _unload(v, n)  # the exchange holds the power-of-two stages' output
         n_out = slots  # output index of v[t, i]
         j = n_out % ns
@@ -293,13 +396,55 @@ def _kernel_irfft2(X, H, W):
     return out
 
 
+def _seven_smooth(m):
+    for p in (3, 5, 7):
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
 def tw_count(n):
     """stockham::tw_count of the CUDA source, which refuses a table of
-    another length: the power-of-two stages' parts, then n entries for an
-    odd factor."""
+    another length: the power-of-two stages' parts, then for an odd factor
+    m the direct route's n entries; where m is 7-smooth (the register
+    route) the last power-of-two stage has no part, the odd stages' parts
+    follow (NP * (m - 1) entries, NP = 16^(stages - 1)), then hi and lo
+    (n/16 + 16 entries)."""
     a = (n & -n).bit_length() - 1
     radices = [16 if 4 * (s + 1) <= a else 1 << (a - 4 * s) for s in range((a + 3) // 4)]
-    return sum((r - 1) << (4 * s) for s, r in enumerate(radices) if s) + (n if n >> a > 1 else 0)
+    if n >> a == 1 or not _seven_smooth(n >> a):
+        return sum((r - 1) << (4 * s) for s, r in enumerate(radices) if s) + (n if n >> a > 1 else 0)
+    np_ = 16 ** (len(radices) - 1)
+    return sum((r - 1) << (4 * s) for s, r in enumerate(radices[:-1]) if s) + np_ * ((n >> a) - 1) + n // 16 + 16
+
+
+@pytest.mark.parametrize("R", [3, 5, 7])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_odd_register_butterflies_match_numpy(R, seed):
+    """The 3-, 5- and 7-point register butterflies (the kernel's symmetric
+    form) against numpy's inverse DFT."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(64, R)) + 1j * rng.normal(size=(64, R))
+    want = np.fft.ifft(a, axis=-1) * R
+    np.testing.assert_allclose(_odd_butterfly(a), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m", range(1, 65, 2))
+def test_radix_plan_routes_each_odd_factor(m):
+    """Every odd m of a side 128*k: a 7-smooth m runs register radices 7,
+    5, 3 (in that order, multiplying to m) between the two power-of-two
+    stages 16 and 8; an m with a prime factor of 11 or more keeps the direct
+    stage, one radix m, last."""
+    n = 128 * m
+    plan = cuda_fftp.radix_plan(n)
+    assert int(np.prod(plan)) == n
+    if _seven_smooth(m):
+        odd = plan[1:-1]
+        assert plan[0] == 16 and plan[-1] == 8
+        assert cuda_fftp.odd_radices(m) == odd == sorted(odd, reverse=True) and set(odd) <= {3, 5, 7}
+    else:
+        assert cuda_fftp.odd_radices(m) is None and plan == [16, 8, m]
+    assert cuda_fftp.stage_twiddles(n).shape == (tw_count(n),)
 
 
 @pytest.mark.parametrize("n", [128 * k for k in range(1, 65)])
@@ -341,9 +486,16 @@ def test_column_twiddles_have_the_length_the_source_checks(h):
 
 
 def test_tw_count_of_the_power_of_two_sides():
+    """The power-of-two tables, then the odd tables of both routes: on the
+    register route the last power-of-two stage's part goes, the odd stages'
+    parts (NP * (m - 1)) and hi and lo (n/16 + 16) follow (1536 = 16*16*3*2:
+    240 + 256*2 + 96 + 16; 8064 = 16*7*3*3*8: 16*62 + 504 + 16; the cluster
+    length 144 = 3*3*16: 8 + 9 + 16); n entries on the direct one (1408 =
+    11 * 128: 112 + 1408)."""
     assert {n: tw_count(n) for n in (128, 256, 512, 1024, 2048, 4096, 8192)} == {
         128: 112, 256: 240, 512: 496, 1024: 1008, 2048: 2032, 4096: 4080, 8192: 8176}
-    assert tw_count(1536) == 496 + 1536 and tw_count(8064) == 112 + 8064
+    assert tw_count(1536) == 240 + 512 + 96 + 16 and tw_count(8064) == 992 + 504 + 16
+    assert tw_count(144) == 8 + 9 + 16 and tw_count(1408) == 112 + 1408
 
 
 @pytest.mark.parametrize("h, w", [(128, 128), (256, 512), (512, 256), (128, 4096), (4096, 128),

@@ -72,15 +72,18 @@ def upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     byte order (``EdfFile.GetData`` of a big-endian file, a big-endian HDF5
     dataset) are swapped on the host first: torch takes native byte order
     only."""
-    frames = np.ascontiguousarray(frames)
-    if not frames.dtype.isnative:
-        frames = frames.astype(frames.dtype.newbyteorder("="))
-    t = torch.from_numpy(frames)
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    else:
-        t = t.to(device)
-    return to_compute(t)
+    with annotate("upload"):
+        frames = np.ascontiguousarray(frames)
+        if not frames.dtype.isnative:
+            frames = frames.astype(frames.dtype.newbyteorder("="))
+        t = torch.from_numpy(frames)
+        if device.type == "cuda":
+            with annotate("upload.pin"):
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        return to_compute(t)
 
 
 def device_array(x, device=None) -> torch.Tensor:
@@ -106,3 +109,7 @@ def device_arrays(*xs, device=None) -> tuple[torch.Tensor, ...]:
             break
     device = resolve_device(device)
     return tuple(device_array(x, device).to(device) for x in xs)
+
+
+# last: the utils package imports this module
+from .utils.profiling import annotate  # noqa: E402

@@ -29,6 +29,7 @@ import torch
 
 from ..config import resolve_device, to_compute, upload
 from ..parallel.mesh import shard_bounds
+from ..utils.profiling import annotate
 
 __all__ = [
     "TILE_GRID_SHAPE_3X3",
@@ -398,35 +399,41 @@ def run_stack_program(
     pending = None
 
     def collect(c0, shards):
-        piece = chunk_from_shards(shards)
+        with annotate("pull.wait"):
+            piece = chunk_from_shards(shards)
         if checkpoint is not None:
             checkpoint.save(c0, unflatten_leaves(piece))
         pieces[c0] = piece
 
     starts = chunk_layout_signature(T, frame_chunk, mesh)
     for c0, c1 in zip(starts, (*starts[1:], T)):
-        if checkpoint is not None and checkpoint.has(c0):
-            pieces[c0] = dict(_leaves(checkpoint.load(c0)))
-            continue
-        shards = []
-        for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
-            if a == b:  # the tail chunk leaves the last shards empty
+        with annotate("chunk"):
+            if checkpoint is not None and checkpoint.has(c0):
+                pieces[c0] = dict(_leaves(checkpoint.load(c0)))
                 continue
-            frames = load(a, b)
-            if flip:
-                frames = torch.flip(frames, dims=[-2])
-            flat, spec = pack_leaves(program(frames), b - a, frames.dtype)
-            shards.append((*pull_to_host(flat, dev), spec))
-        if pending is not None:
-            collect(*pending)
-        pending = (c0, shards)
+            shards = []
+            for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
+                if a == b:  # the tail chunk leaves the last shards empty
+                    continue
+                frames = load(a, b)
+                with annotate("chunk.enqueue"):
+                    if flip:
+                        frames = torch.flip(frames, dims=[-2])
+                    with annotate("step.metrics"):
+                        result = program(frames)
+                    flat, spec = pack_leaves(result, b - a, frames.dtype)
+                    shards.append((*pull_to_host(flat, dev), spec))
+            if pending is not None:
+                collect(*pending)
+            pending = (c0, shards)
     if pending is not None:
         collect(*pending)
 
-    ordered = [pieces[c0] for c0 in sorted(pieces)]
-    return unflatten_leaves(
-        {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
-    )
+    with annotate("entry.assemble"):
+        ordered = [pieces[c0] for c0 in sorted(pieces)]
+        return unflatten_leaves(
+            {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from ..ops.stencils import laplace as laplace_op
 from ..ops.stencils import sobel_x, sobel_y
 from ..ops.widths import distance_at_fraction_core, width_at_fraction_core
 from ..signal.common import lag_axis_from_step
+from ..utils.profiling import annotate
 
 __all__ = [
     "amplitude_core",
@@ -271,6 +272,7 @@ def spectral_entropy_core(
     return {"spectral_entropy": torch.where(s > 0, Hn, np.nan)}
 
 
+@annotate("eig")
 def eigenvalues_core(img, *, k: int = 5, eps: float = 1e-30, eig_method: str = "auto") -> dict:
     """(STA2) Sum of the top-k eigenvalues of the image covariance, from
     the (M, M) Gram matrix J J^T of the energy-normalized, mean-removed

@@ -24,6 +24,7 @@ import torch
 
 from ..config import MIN_TILE_PX, device_array, to_compute
 from ..utils.checkpoint import ChunkStore
+from ..utils.profiling import annotate
 from ..utils.time import elapsed_time, now, progress_done, progress_update
 from .common import (
     apply_display_origin,
@@ -98,20 +99,21 @@ def _sharpness_device_fn(groups: frozenset, mode: str, sat: float | None, eps: f
     (..., H, W) frames to {"full": {group: {field: (...)}}, "tiles":
     {"group/field": {"mean", ["std"]}: (..., 3, 3)}}."""
 
+    cores = {
+        "stats": lambda x: distribution_moments_core(x, saturation_value=sat, eps=eps),
+        "gradient": tenengrad_core,
+        "laplacian": laplacian_variance_core,
+        "spectral": spectral_entropy_core,
+        "autocorrelation": inverse_autocorr_width_core,
+        "eigenvalues": eigenvalues_core,
+    }
+    chosen = [(g, f"group.{g}", cores[g]) for g in _GROUP_ORDER if g in groups]
+
     def group_values(x) -> dict:
         vals: dict = {}
-        if "stats" in groups:
-            vals["stats"] = distribution_moments_core(x, saturation_value=sat, eps=eps)
-        if "gradient" in groups:
-            vals["gradient"] = tenengrad_core(x)
-        if "laplacian" in groups:
-            vals["laplacian"] = laplacian_variance_core(x)
-        if "spectral" in groups:
-            vals["spectral"] = spectral_entropy_core(x)
-        if "autocorrelation" in groups:
-            vals["autocorrelation"] = inverse_autocorr_width_core(x)
-        if "eigenvalues" in groups:
-            vals["eigenvalues"] = eigenvalues_core(x)
+        for g, span, core in chosen:
+            with annotate(span):
+                vals[g] = core(x)
         return vals
 
     def tile_fn(tiles):
@@ -305,6 +307,7 @@ def _check_iaw_size(groups: set, h: int, w: int) -> None:
         )
 
 
+@annotate("entry.sharpness_stats")
 def sharpness_stats(
     image,
     *,
@@ -337,12 +340,10 @@ def sharpness_stats(
         metrics, all_groups=_ALL_SHARPNESS_GROUPS, context="sharpness", param_name="metrics"
     )
     _check_iaw_size(groups, h, w)
-    if (
-        not is_device
-        and ("stats" in groups or "gradient" in groups or "laplacian" in groups)
-        and not np.any(np.isfinite(image))
-    ):
-        raise ValueError("received image with no finite values.")
+    if not is_device and ("stats" in groups or "gradient" in groups or "laplacian" in groups):
+        with annotate("entry.validate"):
+            if not np.any(np.isfinite(image)):
+                raise ValueError("received image with no finite values.")
 
     if verbose:
         logger.info("\nsharpness stats for a (h x w: %.0f x %.0f) image:", h, w)
@@ -353,31 +354,36 @@ def sharpness_stats(
         frozenset(groups), mode, None if saturation_value is None else float(saturation_value),
         float(eps),
     )
-    shown = apply_display_origin(img, display_origin="lower") if flip else img
-    flat, spec = pack_leaves(metric_fn(shown[None]), 1, img.dtype)
-    raw = unflatten_leaves({p: v[0] for p, v in unpack_leaves(flat.cpu().numpy(), spec).items()})
+    with annotate("step.metrics"):
+        shown = apply_display_origin(img, display_origin="lower") if flip else img
+        result = metric_fn(shown[None])
+    flat, spec = pack_leaves(result, 1, img.dtype)
+    with annotate("pull.wait"):
+        host = flat.cpu().numpy()
+    with annotate("entry.assemble"):
+        raw = unflatten_leaves({p: v[0] for p, v in unpack_leaves(host, spec).items()})
 
-    out: dict = {
-        "meta": {
-            "kind": "sharpness",
-            "display_origin": display_origin,
-            "input_shape": (h, w),
-            "requested_groups": sorted(groups),
-            "units": _SHARPNESS_UNITS,
-        },
-        "full": {
-            g: {k: float(v) for k, v in raw["full"][g].items()}
-            for g in _GROUP_ORDER if g in groups
-        },
-    }
-    if verbose:
-        _log_full(out["full"])
-    if mode != "off":
-        out["meta"].update(tiles_meta(h, w, tile_mode=mode, tile_shape_px=tile_shape_px))
-        out["tiles"] = _unflatten_tiles(raw["tiles"], has_std=(mode == "subtiles_9x9"))
-    if verbose:
-        elapsed_time(t0)
-    return out
+        out: dict = {
+            "meta": {
+                "kind": "sharpness",
+                "display_origin": display_origin,
+                "input_shape": (h, w),
+                "requested_groups": sorted(groups),
+                "units": _SHARPNESS_UNITS,
+            },
+            "full": {
+                g: {k: float(v) for k, v in raw["full"][g].items()}
+                for g in _GROUP_ORDER if g in groups
+            },
+        }
+        if verbose:
+            _log_full(out["full"])
+        if mode != "off":
+            out["meta"].update(tiles_meta(h, w, tile_mode=mode, tile_shape_px=tile_shape_px))
+            out["tiles"] = _unflatten_tiles(raw["tiles"], has_std=(mode == "subtiles_9x9"))
+        if verbose:
+            elapsed_time(t0)
+        return out
 
 
 def _log_full(full: dict) -> None:
@@ -414,6 +420,7 @@ def _log_full(full: dict) -> None:
         )
 
 
+@annotate("entry.sharpness_stack_stats")
 def sharpness_stack_stats(
     stack,
     *,
@@ -487,35 +494,36 @@ def sharpness_stack_stats(
         stack, program, frame_chunk=frame_chunk, flip=(display_origin == "lower"),
         mesh=mesh, checkpoint=ckpt, device=device,
     )
-    out_full, out_tiles = _assemble_stack_output(raw, tile_mode)
-    if verbose:
-        progress_done("Sharpness stats loop")
+    with annotate("entry.assemble"):
+        out_full, out_tiles = _assemble_stack_output(raw, tile_mode)
+        if verbose:
+            progress_done("Sharpness stats loop")
 
-    meta: dict = {
-        "kind": "sharpness_stack_stats",
-        "input_shape": (H, W),
-        "stack_shape": (T, H, W),
-        "n_frames": T,
-        "display_origin": display_origin,
-        "requested_groups": sorted(groups),
-        "units": _SHARPNESS_UNITS,
-        "parallel": {
-            "enabled": bool(not serial_mode),
-            "n_jobs": None if serial_mode else n_jobs,
-            "device_batched": True,
-        },
-    }
-    meta.update(tiles_meta(H, W, tile_mode=tile_mode, tile_shape_px=tile_shape_px))
+        meta: dict = {
+            "kind": "sharpness_stack_stats",
+            "input_shape": (H, W),
+            "stack_shape": (T, H, W),
+            "n_frames": T,
+            "display_origin": display_origin,
+            "requested_groups": sorted(groups),
+            "units": _SHARPNESS_UNITS,
+            "parallel": {
+                "enabled": bool(not serial_mode),
+                "n_jobs": None if serial_mode else n_jobs,
+                "device_batched": True,
+            },
+        }
+        meta.update(tiles_meta(H, W, tile_mode=tile_mode, tile_shape_px=tile_shape_px))
 
-    out: dict = {"meta": meta, "full": out_full}
-    if out_tiles is not None:
-        out["tiles"] = out_tiles
-    if verbose:
-        logger.info(
-            "> sharpness_stack_stats | frames=%d | parallel=%s | n_jobs=%s | elapsed=%s s",
-            T,
-            "yes" if not serial_mode else "no",
-            "1" if serial_mode else str(n_jobs),
-            int(elapsed_time(t0, verbose=False)),
-        )
-    return out
+        out: dict = {"meta": meta, "full": out_full}
+        if out_tiles is not None:
+            out["tiles"] = out_tiles
+        if verbose:
+            logger.info(
+                "> sharpness_stack_stats | frames=%d | parallel=%s | n_jobs=%s | elapsed=%s s",
+                T,
+                "yes" if not serial_mode else "no",
+                "1" if serial_mode else str(n_jobs),
+                int(elapsed_time(t0, verbose=False)),
+            )
+        return out

@@ -25,6 +25,7 @@ from ..geometry.roi import odd_size, roi_grid_3x3
 from ..signal.common import lag_axis_from_step
 from ..utils.checkpoint import ChunkStore
 from ..utils.lazy import LazyMap, LazyMapStack
+from ..utils.profiling import annotate
 from .common import (
     apply_display_origin,
     choose_tiling_mode,
@@ -197,6 +198,7 @@ def _unflatten_tiles(flat: dict, *, has_std: bool) -> dict:
     return tiles
 
 
+@annotate("entry.speckle_stats")
 def speckle_stats(
     image,
     *,
@@ -231,12 +233,13 @@ def speckle_stats(
     if "grain" in groups and min(h, w) < _GRAIN_MIN_PX:
         raise ValueError("image too small for speckle grain metrics (min dimension < 128).")
     if not is_device:
-        if "amplitude" in groups:
-            mu = _nanmean64(image)
-            if not np.isfinite(mu) or mu <= 0.0:
-                raise ValueError("Mean intensity must be positive and finite.")
-        if "stats" in groups and (image.size == 0 or not np.any(np.isfinite(image))):
-            raise ValueError("distribution_moments received no finite values.")
+        with annotate("entry.validate"):
+            if "amplitude" in groups:
+                mu = _nanmean64(image)
+                if not np.isfinite(mu) or mu <= 0.0:
+                    raise ValueError("Mean intensity must be positive and finite.")
+            if "stats" in groups and (image.size == 0 or not np.any(np.isfinite(image))):
+                raise ValueError("distribution_moments received no finite values.")
 
     if verbose:
         logger.info("\nspeckle stats for a (h x w: %.0f x %.0f) image:", h, w)
@@ -247,57 +250,61 @@ def speckle_stats(
         frozenset(groups), mode, None if saturation_value is None else float(saturation_value),
         float(eps),
     )
-    shown = apply_display_origin(img, display_origin="lower") if flip else img
-    flat, spec = pack_leaves(metric_fn(shown[None], int_range=int_value_hint(image.dtype)), 1, img.dtype)
-    raw = unflatten_leaves({p: v[0] for p, v in unpack_leaves(flat.cpu().numpy(), spec).items()})
+    with annotate("step.metrics"):
+        shown = apply_display_origin(img, display_origin="lower") if flip else img
+        result = metric_fn(shown[None], int_range=int_value_hint(image.dtype))
+    flat, spec = pack_leaves(result, 1, img.dtype)
+    with annotate("pull.wait"):
+        host = flat.cpu().numpy()
+    with annotate("entry.assemble"):
+        raw = unflatten_leaves({p: v[0] for p, v in unpack_leaves(host, spec).items()})
+        full = raw["full"]
+        if is_device:
+            if "amplitude" in groups and not np.isfinite(full["amplitude"]["visibility"]):
+                raise ValueError("Mean intensity must be positive and finite.")
+            if "stats" in groups and not np.isfinite(full["stats"]["mean"]):
+                raise ValueError("distribution_moments received no finite values.")
 
-    full = raw["full"]
-    if is_device:
-        if "amplitude" in groups and not np.isfinite(full["amplitude"]["visibility"]):
-            raise ValueError("Mean intensity must be positive and finite.")
-        if "stats" in groups and not np.isfinite(full["stats"]["mean"]):
-            raise ValueError("distribution_moments received no finite values.")
-
-    out: dict = {
-        "meta": {
-            "kind": "speckles",
-            "display_origin": display_origin,
-            "input_shape": (h, w),
-            "requested_groups": sorted(groups),
-            "units": _SPECKLE_UNITS,
-        },
-        "full": {},
-    }
-    if "amplitude" in groups:
-        out["full"]["amplitude"] = {k: float(v) for k, v in full["amplitude"].items()}
-    if "grain" in groups:
-        _, _, N = square_embed_slices((h, w))
-        dev = img.device
-
-        def fetch_map(image=image):
-            x = device_array(image, dev)
-            return _grain_map(x, flip).cpu().numpy().astype(np.float64)
-
-        lag = lag_axis_from_step(N, 1.0)
-        out["full"]["grain"] = {
-            **{k: float(full["grain"][k]) for k in ("lx", "ly", "leq", "r")},
-            "autocorr": LazyMap((N, N), np.float64, fetch_map),
-            "xlag": lag,
-            "ylag": lag.copy(),
+        out: dict = {
+            "meta": {
+                "kind": "speckles",
+                "display_origin": display_origin,
+                "input_shape": (h, w),
+                "requested_groups": sorted(groups),
+                "units": _SPECKLE_UNITS,
+            },
+            "full": {},
         }
-    if "stats" in groups:
-        out["full"]["stats"] = {k: float(v) for k, v in full["stats"].items()}
-    if "bandwidth" in groups:
-        out["full"]["bandwidth"] = {k: float(v) for k, v in full["bandwidth"].items()}
-    if verbose:
-        _log_full(out["full"])
+        if "amplitude" in groups:
+            out["full"]["amplitude"] = {k: float(v) for k, v in full["amplitude"].items()}
+        if "grain" in groups:
+            _, _, N = square_embed_slices((h, w))
+            dev = img.device
 
-    if mode != "off":
-        out["meta"].update(tiles_meta(h, w, tile_mode=mode, tile_shape_px=tile_shape_px))
-        out["tiles"] = _unflatten_tiles(raw["tiles"], has_std=(mode == "subtiles_9x9"))
-    if verbose:
-        logger.info("> speckle_stats | elapsed=%.2f s", time.perf_counter() - t0)
-    return out
+            def fetch_map(image=image):
+                x = device_array(image, dev)
+                return _grain_map(x, flip).cpu().numpy().astype(np.float64)
+
+            lag = lag_axis_from_step(N, 1.0)
+            out["full"]["grain"] = {
+                **{k: float(full["grain"][k]) for k in ("lx", "ly", "leq", "r")},
+                "autocorr": LazyMap((N, N), np.float64, fetch_map),
+                "xlag": lag,
+                "ylag": lag.copy(),
+            }
+        if "stats" in groups:
+            out["full"]["stats"] = {k: float(v) for k, v in full["stats"].items()}
+        if "bandwidth" in groups:
+            out["full"]["bandwidth"] = {k: float(v) for k, v in full["bandwidth"].items()}
+        if verbose:
+            _log_full(out["full"])
+
+        if mode != "off":
+            out["meta"].update(tiles_meta(h, w, tile_mode=mode, tile_shape_px=tile_shape_px))
+            out["tiles"] = _unflatten_tiles(raw["tiles"], has_std=(mode == "subtiles_9x9"))
+        if verbose:
+            logger.info("> speckle_stats | elapsed=%.2f s", time.perf_counter() - t0)
+        return out
 
 
 def _log_full(full: dict) -> None:
@@ -329,6 +336,7 @@ def _log_full(full: dict) -> None:
 # stack aggregator
 # ---------------------------------------------------------------------------
 
+@annotate("entry.frame0")
 def tracking_grid_from_frame0(
     stack, *, roi_grain_factor: float = 3.0, roi_step_factor: float = 0.5
 ):
@@ -388,6 +396,7 @@ def _attach_lazy_grain_maps(grain_out: dict, load, T: int, N: int, dtype, *, fli
     grain_out["ylag"] = np.broadcast_to(lag, (T, N)).copy()
 
 
+@annotate("entry.speckle_stack_stats")
 def speckle_stack_stats(
     stack,
     *,
@@ -505,68 +514,69 @@ def speckle_stack_stats(
         checkpoint=ckpt,
         device=device,
     )
-    out_full, out_tiles = _assemble_stack_output(raw_metrics, mode)
-    if "grain" in groups and grain_maps:
-        _, load = frame_loader(stack, device, mesh)
-        dtype = np.float64 if str(stack.dtype).endswith("float64") else np.float32
-        _attach_lazy_grain_maps(
-            out_full["grain"], load, T, square_embed_slices((H, W))[2], dtype, flip=flip
-        )
-    dx_abs_tiles, dy_abs_tiles, dx_inc_tiles, dy_inc_tiles = track
+    with annotate("entry.assemble"):
+        out_full, out_tiles = _assemble_stack_output(raw_metrics, mode)
+        if "grain" in groups and grain_maps:
+            _, load = frame_loader(stack, device, mesh)
+            dtype = np.float64 if str(stack.dtype).endswith("float64") else np.float32
+            _attach_lazy_grain_maps(
+                out_full["grain"], load, T, square_embed_slices((H, W))[2], dtype, flip=flip
+            )
+        dx_abs_tiles, dy_abs_tiles, dx_inc_tiles, dy_inc_tiles = track
 
-    def _agg(a):
-        return (
-            np.nanmean(a, axis=(1, 2)).astype(np.float32),
-            np.nanstd(a, axis=(1, 2)).astype(np.float32),
-        )
+        def _agg(a):
+            return (
+                np.nanmean(a, axis=(1, 2)).astype(np.float32),
+                np.nanstd(a, axis=(1, 2)).astype(np.float32),
+            )
 
-    temporal: dict = {"qc": {"roi_grid_shape": (3, 3)}}
-    for kind, dx, dy in (("abs", dx_abs_tiles, dy_abs_tiles), ("inc", dx_inc_tiles, dy_inc_tiles)):
-        aggs = {name: _agg(a) for name, a in (("dx", dx), ("dy", dy), ("r", np.sqrt(dx**2 + dy**2)))}
-        temporal[kind] = {
-            **{name: m for name, (m, _s) in aggs.items()},
-            **{f"std_{name}": s for name, (_m, s) in aggs.items()},
+        temporal: dict = {"qc": {"roi_grid_shape": (3, 3)}}
+        for kind, dx, dy in (("abs", dx_abs_tiles, dy_abs_tiles), ("inc", dx_inc_tiles, dy_inc_tiles)):
+            aggs = {name: _agg(a) for name, a in (("dx", dx), ("dy", dy), ("r", np.sqrt(dx**2 + dy**2)))}
+            temporal[kind] = {
+                **{name: m for name, (m, _s) in aggs.items()},
+                **{f"std_{name}": s for name, (_m, s) in aggs.items()},
+            }
+
+        meta: dict = {
+            "kind": "speckle_stack_stats",
+            "input_shape": (H, W),
+            "stack_shape": (T, H, W),
+            "n_frames": T,
+            "display_origin": display_origin,
+            "units": _SPECKLE_UNITS,
+            "grain0": {k: grain0.get(k) for k in ("lx", "ly", "leq", "r")},
+            "tracking": {
+                "method": str(tracking_method),
+                "backend": str(tracking_backend),
+                "subpixel": bool(subpixel),
+                "peak_mode": "abs",
+                # what ran: a window that does not fit takes the full search
+                "search_area": (
+                    f"window_r{search_px}px"
+                    if search_px is not None and roi_side + 2 * search_px < min(H, W)
+                    else "full_frame"
+                ),
+                "normalization": {"template": "zscore_local", "search": "zscore_global"},
+                "roi_grain_factor": float(roi_grain_factor),
+                "roi_size_yx": (int(roi_side), int(roi_side)),
+                "roi_step_factor": float(roi_step_factor),
+                "roi_step_yx": (int(step), int(step)),
+                "roi_labels": grid_labels,
+                "roi_order": "row-major",
+            },
+            "parallel": {
+                "enabled": bool(not serial_mode),
+                "device_batched": True,
+                "frame_chunk": int(frame_chunk),
+            },
         }
-
-    meta: dict = {
-        "kind": "speckle_stack_stats",
-        "input_shape": (H, W),
-        "stack_shape": (T, H, W),
-        "n_frames": T,
-        "display_origin": display_origin,
-        "units": _SPECKLE_UNITS,
-        "grain0": {k: grain0.get(k) for k in ("lx", "ly", "leq", "r")},
-        "tracking": {
-            "method": str(tracking_method),
-            "backend": str(tracking_backend),
-            "subpixel": bool(subpixel),
-            "peak_mode": "abs",
-            # what ran: a window that does not fit takes the full search
-            "search_area": (
-                f"window_r{search_px}px"
-                if search_px is not None and roi_side + 2 * search_px < min(H, W)
-                else "full_frame"
-            ),
-            "normalization": {"template": "zscore_local", "search": "zscore_global"},
-            "roi_grain_factor": float(roi_grain_factor),
-            "roi_size_yx": (int(roi_side), int(roi_side)),
-            "roi_step_factor": float(roi_step_factor),
-            "roi_step_yx": (int(step), int(step)),
-            "roi_labels": grid_labels,
-            "roi_order": "row-major",
-        },
-        "parallel": {
-            "enabled": bool(not serial_mode),
-            "device_batched": True,
-            "frame_chunk": int(frame_chunk),
-        },
-    }
-    out: dict = {"meta": meta, "full": out_full, "temporal": temporal}
-    if out_tiles is not None:
-        out["tiles"] = out_tiles
-    if verbose:
-        logger.info(
-            "> speckle_stack_stats | frames=%d | roi=%dx%d | step=%d | elapsed=%.1f s",
-            T, roi_side, roi_side, step, time.perf_counter() - t0,
-        )
-    return out
+        out: dict = {"meta": meta, "full": out_full, "temporal": temporal}
+        if out_tiles is not None:
+            out["tiles"] = out_tiles
+        if verbose:
+            logger.info(
+                "> speckle_stack_stats | frames=%d | roi=%dx%d | step=%d | elapsed=%.1f s",
+                T, roi_side, roi_side, step, time.perf_counter() - t0,
+            )
+        return out

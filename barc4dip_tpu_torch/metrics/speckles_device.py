@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from .common import subtile_grids_to_3x3_device, tiled_scalar_fields_device
 from .estimators import (
     amplitude_core,
@@ -41,16 +42,19 @@ def speckle_device_fn(groups: frozenset, mode: str, sat: float | None, eps: floa
     Grain and bandwidth each run their own forward FFT, as in the JAX
     program."""
 
+    cores = {
+        "amplitude": lambda img, int_range: amplitude_core(img, integer_range=int_range),
+        "grain": lambda img, int_range: grain_core(img, with_map=False),
+        "stats": lambda img, int_range: distribution_moments_core(img, saturation_value=sat, eps=eps),
+        "bandwidth": lambda img, int_range: bandwidth_core(img),
+    }
+    chosen = [(g, f"group.{g}", core) for g, core in cores.items() if g in groups]
+
     def scalars(img, int_range):
         vals: dict = {}
-        if "amplitude" in groups:
-            vals["amplitude"] = amplitude_core(img, integer_range=int_range)
-        if "grain" in groups:
-            vals["grain"] = grain_core(img, with_map=False)
-        if "stats" in groups:
-            vals["stats"] = distribution_moments_core(img, saturation_value=sat, eps=eps)
-        if "bandwidth" in groups:
-            vals["bandwidth"] = bandwidth_core(img)
+        for g, span, core in chosen:
+            with annotate(span):
+                vals[g] = core(img, int_range)
         return vals
 
     def fn(img, int_range=None):

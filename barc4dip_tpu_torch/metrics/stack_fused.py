@@ -36,6 +36,7 @@ from ..config import resolve_device, to_compute, upload
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
 from ..parallel.mesh import shard_bounds
+from ..utils.profiling import annotate
 from .common import (
     _leaves,
     apply_display_origin,
@@ -224,11 +225,13 @@ def _stack_step(H: int, W: int, grid_slices, *, groups: set, mode: str, sat, eps
     def step(frames, prev, tpl0, *, metrics: bool = True, tracking: bool = True) -> dict:
         result = {}
         if metrics:
-            shown = apply_display_origin(frames, display_origin="lower") if flip else frames
-            result = metric_fn(shown, int_range=int_range)
+            with annotate("step.metrics"):
+                shown = apply_display_origin(frames, display_origin="lower") if flip else frames
+                result = metric_fn(shown, int_range=int_range)
         if tracking:
-            prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
-            result["track"] = dict(enumerate(track(frames, prevs, tpl0)))
+            with annotate("track"):
+                prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
+                result["track"] = dict(enumerate(track(frames, prevs, tpl0)))
         return result
 
     return bank, step
@@ -297,7 +300,8 @@ def run_fused_speckle_stack(
 
     def collect(c0, c1, shards):
         t0 = time.perf_counter()
-        out = chunk_from_shards(shards)
+        with annotate("pull.wait"):
+            out = chunk_from_shards(shards)
         perf["pull_wait_s"] += time.perf_counter() - t0
         tr = np.stack([out.pop(f"track\0{i}") for i in range(4)])
         if checkpoint is not None:
@@ -306,46 +310,48 @@ def run_fused_speckle_stack(
 
     chunk_starts = chunk_layout_signature(T, frame_chunk, mesh)
     for c0, c1 in zip(chunk_starts, (*chunk_starts[1:], T)):
-        if checkpoint is not None and checkpoint.has(c0):
-            piece = checkpoint.load(c0)
-            store(c0, c1, dict(_leaves(piece["metrics"])),
-                  np.stack([piece["track"][k] for k in _TRACK_KEYS]))
-            prev = None
-            continue
-        if frame0 is None:  # read once, before the predecessor (a file view caches one frame)
-            frame0 = placements[0][1](0, 1)[0]
-        if prev is None:  # the predecessor of frame 0 is frame 0 itself
-            prev = placements[0][1](max(c0 - 1, 0), max(c0, 1))[0]
-        shards = []
-        for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
-            if a == b:  # the tail chunk leaves the last shards empty
+        with annotate("chunk"):
+            if checkpoint is not None and checkpoint.has(c0):
+                piece = checkpoint.load(c0)
+                store(c0, c1, dict(_leaves(piece["metrics"])),
+                      np.stack([piece["track"][k] for k in _TRACK_KEYS]))
+                prev = None
                 continue
-            if dev not in tpl0:
-                tpl0[dev] = bank(frame0.to(dev))
-            timed_copy = host_stack and dev.type == "cuda"
-            if timed_copy:
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record(torch.cuda.current_stream(dev))
-            t0 = time.perf_counter()
-            frames = load(a, b)
-            t1 = time.perf_counter()
-            if timed_copy:
-                ev[1].record(torch.cuda.current_stream(dev))
-                copies.setdefault(dev, []).append(ev)
-            if host_stack:
-                perf["upload_s"] += t1 - t0
-                perf["upload_bytes"] += (b - a) * frame_bytes
-            result = step(frames, prev, tpl0[dev])
-            prev = frames[-1]
-            # one vector per shard leaves the device
-            flat, spec = pack_leaves(result, b - a, frames.dtype)
-            shards.append((*pull_to_host(flat, dev), spec))
-            perf["dispatch_s"] += time.perf_counter() - t1
-            perf["pull_bytes"] += flat.numel() * flat.element_size()
-        perf["chunks"] += 1
-        if pending is not None:
-            collect(*pending)
-        pending = (c0, c1, shards)
+            if frame0 is None:  # read once, before the predecessor (a file view caches one frame)
+                frame0 = placements[0][1](0, 1)[0]
+            if prev is None:  # the predecessor of frame 0 is frame 0 itself
+                prev = placements[0][1](max(c0 - 1, 0), max(c0, 1))[0]
+            shards = []
+            for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
+                if a == b:  # the tail chunk leaves the last shards empty
+                    continue
+                if dev not in tpl0:
+                    tpl0[dev] = bank(frame0.to(dev))
+                timed_copy = host_stack and dev.type == "cuda"
+                if timed_copy:
+                    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    ev[0].record(torch.cuda.current_stream(dev))
+                t0 = time.perf_counter()
+                frames = load(a, b)
+                t1 = time.perf_counter()
+                if timed_copy:
+                    ev[1].record(torch.cuda.current_stream(dev))
+                    copies.setdefault(dev, []).append(ev)
+                if host_stack:
+                    perf["upload_s"] += t1 - t0
+                    perf["upload_bytes"] += (b - a) * frame_bytes
+                with annotate("chunk.enqueue"):
+                    result = step(frames, prev, tpl0[dev])
+                    prev = frames[-1]
+                    # one vector per shard leaves the device
+                    flat, spec = pack_leaves(result, b - a, frames.dtype)
+                    shards.append((*pull_to_host(flat, dev), spec))
+                perf["dispatch_s"] += time.perf_counter() - t1
+                perf["pull_bytes"] += flat.numel() * flat.element_size()
+            perf["chunks"] += 1
+            if pending is not None:
+                collect(*pending)
+            pending = (c0, c1, shards)
     if pending is not None:
         collect(*pending)
     if copies:  # every copy precedes a result pull that collect waited for
@@ -355,8 +361,9 @@ def run_fused_speckle_stack(
     LAST_RUN_PERF.clear()
     LAST_RUN_PERF.update(perf)
 
-    ordered = [pieces[c0] for c0 in sorted(pieces)]
-    metrics = {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
+    with annotate("entry.assemble"):
+        ordered = [pieces[c0] for c0 in sorted(pieces)]
+        metrics = {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
     dy_a, dx_a, dy_i, dx_i = (a.reshape(T, 3, 3) for a in track_out)
     return unflatten_leaves(metrics), (dx_a, dy_a, dx_i, dy_i)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from . import cuda_fftp
 
 __all__ = ["xcorr1d_core", "xcorr2d_core", "autocorr2d_core"]
@@ -72,6 +73,7 @@ def xcorr2d_core(a, b, *, remove_mean=True, standardize=False, normalize="peak")
     return _finalize(torch.fft.fftshift(corr, dim=(-2, -1)), normalize)
 
 
+@annotate("k1.autocorr")
 def autocorr2d_core(
     a, *, remove_mean: bool = True, standardize: bool = False, normalize: str = "peak"
 ):

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from . import cuda_fftp
 from .phasecorr import zscore2d
 
@@ -121,6 +122,7 @@ def ncc_bank_masked_from_preps(img_prep, tpl_bank, *, eps: float = 1e-9):
     return maps, vb
 
 
+@annotate("k1.ncc")
 def ncc_bank_masked_peaks(img_prep, tpl_bank, *, eps: float = 1e-9):
     """Full-frame NCC maps and integer peaks of a template bank against
     prepared images.

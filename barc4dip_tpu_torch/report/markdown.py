@@ -22,6 +22,7 @@ from typing import Callable
 import numpy as np
 
 from ..utils import now
+from ..utils.profiling import annotate
 
 __all__ = ["logbook_report", "register_formatter"]
 
@@ -40,6 +41,7 @@ def register_formatter(kind: str) -> Callable[[_LogbookFormatter], _LogbookForma
     return _decorator
 
 
+@annotate("entry.logbook_report")
 def logbook_report(
     stats: dict,
     report_path: str | Path | None = None,

@@ -7,12 +7,15 @@
   Chrome trace (``chrome://tracing``, Perfetto) into a directory;
 - :class:`StageTimer` — lightweight named-stage wall-clock accumulator for
   pipeline runs (host side; device work is synchronized at stage ends);
-- :func:`annotate` — ``torch.profiler.record_function`` wrapper, so
-  pipeline stages show up by name inside device traces.
+- :class:`annotate` — the port's one span: a named
+  ``torch.profiler.record_function`` range while a profiler records, so
+  pipeline stages show up by name inside device traces, on the trace's own
+  clock; one flag check otherwise.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import time
@@ -50,11 +53,49 @@ def device_trace(log_dir: str, *, create_perfetto_link: bool = False):
     prof.export_chrome_trace(path)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Name a region inside a device trace."""
-    with torch.profiler.record_function(name):
-        yield
+if hasattr(torch.autograd.profiler, "_is_profiler_enabled"):
+    def _recording() -> bool:
+        return torch.autograd.profiler._is_profiler_enabled
+else:
+    _recording = torch._C._autograd._profiler_enabled
+
+
+class annotate:
+    """Name a region inside a device trace: ``with annotate(name):``, or
+    ``@annotate(name)`` on a function for each of its calls.
+
+    While a profiler records, the region is a ``record_function`` range, so
+    it lands in the trace beside the operators, launches and kernels it
+    encloses, and nests in the ranges open around it on its thread. With no
+    profiler recording, entering and leaving costs one flag check and makes
+    no range."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _recording():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            rng, self._range = self._range, None
+            rng.__exit__(*exc)
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 @dataclass
@@ -79,7 +120,7 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with annotate(name):
                 yield
         finally:
             # only a process that has used a card has device work to wait for

@@ -14,6 +14,9 @@
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -22,6 +25,9 @@ __all__ = [
     "SATURATION_VALUE",
     "device_array",
     "device_arrays",
+    "device_cache",
+    "device_constant",
+    "holding_cached",
     "resolve_device",
     "to_compute",
     "upload",
@@ -109,6 +115,60 @@ def device_arrays(*xs, device=None) -> tuple[torch.Tensor, ...]:
             break
     device = resolve_device(device)
     return tuple(device_array(x, device).to(device) for x in xs)
+
+
+_HOLDERS: list[list] = []  # the open holding_cached() lists, innermost last
+
+
+def device_cache(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for the builders of device tensors
+    that the metric step reads (plans, constants). Inside
+    :func:`holding_cached`, whatever the builder returns is also kept by the
+    innermost holder: a CUDA graph captured there reads those tensors at
+    fixed addresses, and holds them for as long as it lives, whatever the
+    cache drops."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            out = cached(*args)
+            if _HOLDERS:
+                _HOLDERS[-1].append(out)
+            return out
+
+        call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def holding_cached():
+    """Yields a list that keeps every :func:`device_cache` result handed
+    out inside the block."""
+    held: list = []
+    _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDERS.pop()
+
+
+@device_cache(256)
+def _constant(raw: bytes, np_dtype: str, shape: tuple, dtype, device) -> torch.Tensor:
+    host = np.frombuffer(raw, np.dtype(np_dtype)).reshape(shape).copy()
+    return torch.as_tensor(host, dtype=dtype, device=device)
+
+
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(values, dtype=dtype, device=device)`` of a small
+    host constant (quantile levels, radial axes, tile indices, ROI offsets),
+    built once for each (values, dtype, device) and shared by every later
+    call. A host array copied to the card each call would make the host wait
+    for the card, and a CUDA graph cannot hold such a copy. The tensor is
+    shared: read it, never write it."""
+    arr = np.asarray(values)
+    return _constant(arr.tobytes(), arr.dtype.str, arr.shape, dtype, torch.device(device))
 
 
 # last: the utils package imports this module

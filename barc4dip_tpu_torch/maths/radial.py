@@ -3,7 +3,8 @@
 :mod:`barc4dip_tpu_torch.ops.radialcore`. Origin: pixel-center coordinates
 ``x = arange(nx) - nx//2``.
 
-Both functions return tensors on the device. A numpy input computes on
+Both functions return tensors on the device, the radial axis a copy of the
+cores' shared one. A numpy input computes on
 ``device`` (``None``: the card, and an error without one), a tensor on its
 own device; integer input computes in float32.
 """
@@ -40,9 +41,10 @@ def radial_mean_binned(
     On CUDA the bin sums are ``index_add_`` sums, which add with atomics in
     no fixed order: two runs may differ in the last bits."""
     z = _validate(signal_2d, device)
-    return radialcore.radial_mean_binned_core(
+    radial, r = radialcore.radial_mean_binned_core(
         z, r_max=None if r_max is None else float(r_max), bin_size=float(bin_size)
     )
+    return radial, r.clone()
 
 
 def radial_mean_interpolated(
@@ -56,10 +58,11 @@ def radial_mean_interpolated(
 ):
     """Radial mean via polar resampling + bilinear interpolation: (radial, r)."""
     z = _validate(signal_2d, device)
-    return radialcore.radial_mean_interpolated_core(
+    radial, r = radialcore.radial_mean_interpolated_core(
         z,
         r_max=None if r_max is None else float(r_max),
         nr=None if nr is None else int(nr),
         ntheta=None if ntheta is None else int(ntheta),
         fill_value=float(fill_value),
     )
+    return radial, r.clone()

@@ -27,7 +27,7 @@ from typing import Callable, Literal, Sequence
 import numpy as np
 import torch
 
-from ..config import resolve_device, to_compute, upload
+from ..config import device_constant, resolve_device, to_compute, upload
 from ..parallel.mesh import shard_bounds
 from ..utils.profiling import annotate
 
@@ -53,6 +53,8 @@ __all__ = [
     "split_edges",
     "stack_time_series",
     "subtile_grids_to_3x3_device",
+    "tile_batch",
+    "tile_grids",
     "tile_plan",
     "tiled_scalar_fields",
     "tiled_scalar_fields_device",
@@ -194,29 +196,47 @@ def tile_plan(h: int, w: int, n: int):
     return tuple((th, tw, tuple(pos)) for (th, tw), pos in sorted(buckets.items()))
 
 
+def tile_batch(image, bucket):
+    """The (..., P, th, tw) batch of one :func:`tile_plan` bucket's tiles of
+    (..., h, w) images."""
+    th, tw, positions = bucket
+    return torch.stack(
+        [image[..., y0 : y0 + th, x0 : x0 + tw] for (_, _, y0, x0) in positions], dim=-3
+    )
+
+
+def tile_grids(lead: tuple, n: int, per_bucket) -> dict:
+    """{field: (*lead, n, n)} grids from ``per_bucket``, an iterable of
+    (bucket, {field: (*lead, P)}) over :func:`tile_plan`'s buckets; a cell no
+    bucket fills reads NaN. The grid indices are device constants
+    (``config.device_constant``), so no call copies them to the card."""
+    grids: dict[str, torch.Tensor] = {}
+    for (_, _, positions), vals in per_bucket:
+        if not vals:
+            continue
+        dev = next(iter(vals.values())).device
+        rows = device_constant([p[0] for p in positions], torch.int64, dev)
+        cols = device_constant([p[1] for p in positions], torch.int64, dev)
+        for k, v in vals.items():
+            if k not in grids:
+                grids[k] = torch.full((*lead, n, n), math.nan, dtype=v.dtype, device=v.device)
+            grids[k][..., rows, cols] = v
+    return grids
+
+
 def tiled_scalar_fields_device(
     image, *, n: int, compute_fn: Callable[[torch.Tensor], dict]
 ) -> dict:
     """``compute_fn`` on every tile of an n x n grid of (..., h, w) images.
 
     ``compute_fn`` takes a (..., P, th, tw) batch and returns {field:
-    (..., P)}. Returns {field: (..., n, n)}."""
+    (..., P)}. Returns {field: (..., n, n)}. One bucket's batch is alive at
+    a time."""
     h, w = (int(s) for s in image.shape[-2:])
-    grids: dict[str, torch.Tensor] = {}
-    for th, tw, positions in tile_plan(h, w, n):
-        batch = torch.stack(
-            [image[..., y0 : y0 + th, x0 : x0 + tw] for (_, _, y0, x0) in positions],
-            dim=-3,
-        )
-        rows = [p[0] for p in positions]
-        cols = [p[1] for p in positions]
-        for k, v in compute_fn(batch).items():
-            if k not in grids:
-                grids[k] = torch.full(
-                    (*image.shape[:-2], n, n), math.nan, dtype=v.dtype, device=v.device
-                )
-            grids[k][..., rows, cols] = v
-    return grids
+    return tile_grids(
+        tuple(image.shape[:-2]), n,
+        ((b, compute_fn(tile_batch(image, b))) for b in tile_plan(h, w, n)),
+    )
 
 
 def subtile_grids_to_3x3_device(grids: dict) -> dict:

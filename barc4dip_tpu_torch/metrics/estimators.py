@@ -7,11 +7,10 @@ tensors. Degenerate images give NaN/Inf instead of raising.
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
+from ..config import device_cache
 from ..geometry.masks import square_embed_slices
 from ..ops.corrcore import autocorr2d_core
 from ..ops.eig import topk_eigvalsh_subspace
@@ -36,6 +35,7 @@ __all__ = [
     "distribution_moments_core",
     "eigenvalues_core",
     "grain_core",
+    "grain_from_autocorr",
     "grain_map_core",
     "inverse_autocorr_width_core",
     "laplacian_variance_core",
@@ -110,17 +110,22 @@ def _widths_from_autocorr(ac, *, fraction: float, radial_method: str):
     return lx, ly, 2.0 * dist * dr
 
 
+def grain_from_autocorr(ac, *, fraction: float = _INV_E, radial_method: str = "interpolated") -> dict:
+    """Speckle grain sizes lx, ly, leq and the anisotropy r = lx/ly of
+    peak-normalized autocorrelation maps (..., N, N) (:func:`grain_map_core`)."""
+    lx, ly, leq = _widths_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
+    r = torch.where(ly != 0, lx / torch.where(ly != 0, ly, 1.0), np.inf)
+    return {"lx": lx, "ly": ly, "leq": leq, "r": r}
+
+
 def grain_core(
     img, *, fraction: float = _INV_E, radial_method: str = "interpolated", with_map: bool = True
 ) -> dict:
     """Speckle grain sizes from the autocorrelation peak: lx, ly, leq and
     the anisotropy r = lx/ly, plus the peak-normalized autocorrelation map
     (..., N, N) and its lag axes (N,) unless ``with_map=False``."""
-    lx, ly, leq, ac = _autocorr_widths(
-        img, fraction=fraction, standardize=False, radial_method=radial_method
-    )
-    r = torch.where(ly != 0, lx / torch.where(ly != 0, ly, 1.0), np.inf)
-    out = {"lx": lx, "ly": ly, "leq": leq, "r": r}
+    ac = grain_map_core(img)
+    out = grain_from_autocorr(ac, fraction=fraction, radial_method=radial_method)
     if with_map:
         lag = torch.as_tensor(lag_axis_from_step(ac.shape[-1], 1.0), dtype=ac.dtype, device=ac.device)
         out.update(autocorr=ac, xlag=lag, ylag=lag)
@@ -163,7 +168,7 @@ def bandwidth_core(img) -> dict:
     return _bandwidth_from_psd(psd2d_core(data, step_x=1.0, step_y=1.0, scale=True))
 
 
-@lru_cache(maxsize=32)
+@device_cache(32)
 def _freq_plan(N: int, dt, dev):
     """Flattened shifted-frequency fields and the integer radius class
     s = ix^2 + iy^2 of every position of an (N, N) fftshifted spectrum."""

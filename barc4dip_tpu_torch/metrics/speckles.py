@@ -37,10 +37,9 @@ from .common import (
     tiles_meta,
 )
 from .estimators import amplitude_core, bandwidth_core, grain_core, grain_map_core
-from .speckles_device import int_value_hint, speckle_device_fn
+from .speckles_device import int_value_hint, metric_step, speckle_device_fn
 from .stack_fused import (
     frame_loader,
-    pack_leaves,
     run_fused_speckle_stack,
     unflatten_leaves,
     unpack_leaves,
@@ -251,9 +250,7 @@ def speckle_stats(
         float(eps),
     )
     with annotate("step.metrics"):
-        shown = apply_display_origin(img, display_origin="lower") if flip else img
-        result = metric_fn(shown[None], int_range=int_value_hint(image.dtype))
-    flat, spec = pack_leaves(result, 1, img.dtype)
+        flat, spec = metric_step(metric_fn, img[None], flip=flip, int_range=int_value_hint(image.dtype))
     with annotate("pull.wait"):
         host = flat.cpu().numpy()
     with annotate("entry.assemble"):

@@ -9,6 +9,9 @@
   exactly the host stack's results;
 - the metric step and the tracker read that one copy; the tracker sees the
   frames as they are, the metric step after the display-origin flip;
+- on a card the metric step replays as CUDA graphs from its second chunk of
+  a shape in the process (``speckles_device.metric_step``), and the tracker
+  runs eagerly;
 - the chunk's last frame stays on the device as the next chunk's
   incremental-tracking reference;
 - each chunk's results leave the device as one vector, copied without
@@ -32,14 +35,13 @@ import time
 import numpy as np
 import torch
 
-from ..config import resolve_device, to_compute, upload
+from ..config import device_constant, resolve_device, to_compute, upload
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
 from ..parallel.mesh import shard_bounds
 from ..utils.profiling import annotate
 from .common import (
     _leaves,
-    apply_display_origin,
     chunk_from_shards,
     chunk_layout_signature,
     chunk_width,
@@ -50,7 +52,7 @@ from .common import (
     unflatten_leaves,
     unpack_leaves,
 )
-from .speckles_device import int_value_hint, speckle_device_fn
+from .speckles_device import GRAPH_COUNTS, int_value_hint, metric_step, speckle_device_fn
 from .tracking_batch import _extract_tiles, _grid_geometry
 
 __all__ = [
@@ -73,7 +75,11 @@ __all__ = [
 #: the pulled results: the device time shows here), ``upload_bytes`` (host
 #: frames uploaded, in their own dtype), ``pull_bytes``, ``chunks`` (chunks
 #: run, not loaded from a checkpoint), and ``resident: True`` for a tensor
-#: stack.
+#: stack. How the metric step ran (``speckles_device.GRAPH_COUNTS`` over the
+#: run): ``graph_replays`` (shards replayed as CUDA graphs),
+#: ``graph_captures`` (keys captured, in a shard that is also replayed) and
+#: ``eager_steps`` (shards run eagerly: every shard off a card, and on a
+#: card a key's first shard in the process).
 LAST_RUN_PERF: dict = {}
 
 
@@ -135,8 +141,8 @@ def _track_chunk(frames, prevs, tpl0, starts, s: int, subpixel: bool, eps: float
     py_a, px_a = bank_peaks(tpl0)
     py_i, px_i = bank_peaks(inc_bank)
     half = (s - 1) / 2.0
-    cy = torch.as_tensor(starts[:, 0] + half, dtype=frames.dtype, device=frames.device)
-    cx = torch.as_tensor(starts[:, 1] + half, dtype=frames.dtype, device=frames.device)
+    cy = device_constant(starts[:, 0] + half, frames.dtype, frames.device)
+    cx = device_constant(starts[:, 1] + half, frames.dtype, frames.device)
     return py_a + half - cy, px_a + half - cx, py_i + half - cy, px_i + half - cx
 
 
@@ -163,9 +169,8 @@ def _track_windowed(frames, prevs, tpl0, starts, s: int, windows, subpixel: bool
 
     py_a, px_a = peaks(abs_bank)
     py_i, px_i = peaks(inc_bank)
-    half = (s - 1) / 2.0
-    oy = torch.as_tensor(wy0 - starts[:, 0], dtype=frames.dtype, device=frames.device)
-    ox = torch.as_tensor(wx0 - starts[:, 1], dtype=frames.dtype, device=frames.device)
+    oy = device_constant(wy0 - starts[:, 0], frames.dtype, frames.device)
+    ox = device_constant(wx0 - starts[:, 1], frames.dtype, frames.device)
     # window offset + peak + half - (tile start + half)
     return py_a + oy, px_a + ox, py_i + oy, px_i + ox
 
@@ -200,10 +205,12 @@ def _stack_step(H: int, W: int, grid_slices, *, groups: set, mode: str, sat, eps
 
     ``bank(frame0)`` builds the frame-0 template bank on frame0's device.
     ``step(frames, prev, tpl0, metrics=True, tracking=True)`` gives a
-    chunk's tree of (n, ...) results: the metric tree of the frames after
-    the display-origin flip, and under ``"track"`` their four trajectories
-    against ``tpl0`` and against each frame's predecessor (``prev`` for the
-    first frame)."""
+    chunk's (n, L) result vector and its spec (:func:`pack_leaves`): the
+    metric tree of the frames after the display-origin flip
+    (:func:`..speckles_device.metric_step`, CUDA graphs on a card), then
+    under ``"track"`` their four trajectories against ``tpl0`` and against
+    each frame's predecessor (``prev`` for the first frame), tracked
+    eagerly."""
     starts, _, s = _grid_geometry(grid_slices)
     metric_fn = speckle_device_fn(frozenset(groups), mode, sat, eps)
     windows = None
@@ -222,17 +229,19 @@ def _stack_step(H: int, W: int, grid_slices, *, groups: set, mode: str, sat, eps
     def bank(frame0):
         return _build_tpl0(frame0, starts, s, H, W, method, track_eps, windows)
 
-    def step(frames, prev, tpl0, *, metrics: bool = True, tracking: bool = True) -> dict:
-        result = {}
+    def step(frames, prev, tpl0, *, metrics: bool = True, tracking: bool = True):
+        parts = []
         if metrics:
             with annotate("step.metrics"):
-                shown = apply_display_origin(frames, display_origin="lower") if flip else frames
-                result = metric_fn(shown, int_range=int_range)
+                parts.append(metric_step(metric_fn, frames, flip=flip, int_range=int_range))
         if tracking:
             with annotate("track"):
                 prevs = torch.cat([prev.to(frames.device)[None], frames[:-1]])
-                result["track"] = dict(enumerate(track(frames, prevs, tpl0)))
-        return result
+                tracked = {"track": dict(enumerate(track(frames, prevs, tpl0)))}
+                parts.append(pack_leaves(tracked, frames.shape[0], frames.dtype))
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([flat for flat, _ in parts], dim=1), [p for _, spec in parts for p in spec]
 
     return bank, step
 
@@ -283,6 +292,7 @@ def run_fused_speckle_stack(
     frame_bytes = H * W * stack.dtype.itemsize if host_stack else 0
     perf = {"upload_s": 0.0, "dispatch_s": 0.0, "pull_wait_s": 0.0, "upload_io_s": 0.0,
             "upload_bytes": 0, "pull_bytes": 0, "chunks": 0}
+    ran = dict(GRAPH_COUNTS)
     if not host_stack:
         perf["resident"] = True
     copies: dict = {}  # device -> [(start, end)]: CUDA events around each chunk upload
@@ -341,10 +351,9 @@ def run_fused_speckle_stack(
                     perf["upload_s"] += t1 - t0
                     perf["upload_bytes"] += (b - a) * frame_bytes
                 with annotate("chunk.enqueue"):
-                    result = step(frames, prev, tpl0[dev])
-                    prev = frames[-1]
                     # one vector per shard leaves the device
-                    flat, spec = pack_leaves(result, b - a, frames.dtype)
+                    flat, spec = step(frames, prev, tpl0[dev])
+                    prev = frames[-1].clone()  # not a view that keeps the whole chunk
                     shards.append((*pull_to_host(flat, dev), spec))
                 perf["dispatch_s"] += time.perf_counter() - t1
                 perf["pull_bytes"] += flat.numel() * flat.element_size()
@@ -358,6 +367,7 @@ def run_fused_speckle_stack(
         perf["upload_io_s"] = max(sum(a.elapsed_time(b) for a, b in evs) for evs in copies.values()) / 1e3
     else:
         perf["upload_io_s"] = perf["upload_s"]
+    perf.update({k: GRAPH_COUNTS[k] - ran[k] for k in GRAPH_COUNTS})
     LAST_RUN_PERF.clear()
     LAST_RUN_PERF.update(perf)
 
@@ -431,8 +441,7 @@ def device_compute_probe(
         flats = []
         for c0 in chunk_layout_signature(T, B):
             chunk = frames[c0 : c0 + B]
-            flat, spec = pack_leaves(step(chunk, prev, tpl0, metrics=metrics, tracking=tracking),
-                                     B, frames.dtype)
+            flat, spec = step(chunk, prev, tpl0, metrics=metrics, tracking=tracking)
             flats.append(flat)
             prev = chunk[-1]
         host = torch.cat(flats).cpu()

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..config import device_constant
+
 __all__ = ["median_exact", "nanmedian_exact", "nanpercentiles_exact", "nanquantiles_exact"]
 
 
@@ -39,7 +41,7 @@ def nanquantiles_exact(x, qs: tuple[float, ...], *, integer_range=None):
     # NaNs sort past every ranked value: the first n entries are the ranked ones
     xs = torch.sort(torch.where(nan, math.inf, x), dim=-1).values
 
-    q = torch.tensor(qs, dtype=torch.float64, device=x.device)
+    q = device_constant(qs, torch.float64, x.device)
     rank = q * (n.clamp_min(1) - 1)[..., None].to(torch.float64)
     lo_k = torch.floor(rank).long()
     hi_k = torch.ceil(rank).long()

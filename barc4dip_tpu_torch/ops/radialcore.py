@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..config import device_cache, device_constant
+
 __all__ = [
     "binned_geometry",
     "interpolated_geometry",
@@ -43,7 +45,8 @@ def binned_geometry(shape: tuple[int, int], r_max: float | None, bin_size: float
 
 def radial_mean_binned_core(signal_2d, *, r_max: float | None = None, bin_size: float = 1.0):
     """Annular-bin radial mean of (..., ny, nx) maps. Returns (radial
-    (..., nbins), r_centers); empty bins give NaN."""
+    (..., nbins), r_centers); empty bins give NaN. ``r_centers`` is shared
+    between calls (``config.device_constant``): read it, never write it."""
     ny, nx = (int(s) for s in signal_2d.shape[-2:])
     _, nbins, r_centers = binned_geometry(
         (ny, nx), None if r_max is None else float(r_max), float(bin_size)
@@ -59,7 +62,7 @@ def radial_mean_binned_core(signal_2d, *, r_max: float | None = None, bin_size: 
     sums.index_add_(-1, ids, vals)
     counts = torch.bincount(ids, minlength=nbins + 1).to(dt)
     radial = torch.where(counts > 0, sums / counts.clamp_min(1), math.nan)[..., :nbins]
-    return radial, torch.as_tensor(r_centers, dtype=dt, device=dev)
+    return radial, device_constant(r_centers, dt, dev)
 
 
 @lru_cache(maxsize=256)
@@ -83,7 +86,7 @@ def interpolated_geometry(
     return float(r_max), int(nr), int(ntheta), r
 
 
-@lru_cache(maxsize=64)
+@device_cache(64)
 def _polar_plan(shape, rm: float, nr: int, nt: int, half: bool, dt, dev):
     """Flat gather index, bilinear fractions, out-of-bounds mask and
     half-ring weights of the polar samples, in the map's dtype."""
@@ -137,7 +140,8 @@ def radial_mean_interpolated_core(
     which ``F.grid_sample``'s border modes do not give).
     ``centrosymmetric=True`` samples theta over [0, pi) only: for a map
     with map[c+k] == map[c-k] about c = n//2 (autocorrelation, PSD) the
-    half-ring mean is the full-ring mean. Needs an even ``ntheta``."""
+    half-ring mean is the full-ring mean. Needs an even ``ntheta``. ``r`` is
+    shared between calls, as :func:`radial_mean_binned_core`'s axis is."""
     ny, nx = (int(s) for s in signal_2d.shape[-2:])
     rm, nr_, nt_, r_np = interpolated_geometry(
         (ny, nx),
@@ -156,9 +160,9 @@ def radial_mean_interpolated_core(
     v10 = flat[..., base + nx]
     v11 = flat[..., base + nx + 1]
     vals = (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * ((1 - fx) * v10 + fx * v11)
-    fill = torch.tensor(fill_value, dtype=dt, device=signal_2d.device)
+    fill = device_constant(fill_value, dt, signal_2d.device)
     vals = torch.where(oob, fill, vals)
     if w is not None:
         vals = w * vals + (1.0 - w) * fill
     radial = vals.reshape(*vals.shape[:-1], nr_, nt_).mean(-1)
-    return radial, torch.as_tensor(r_np, dtype=dt, device=signal_2d.device)
+    return radial, device_constant(r_np, dt, signal_2d.device)

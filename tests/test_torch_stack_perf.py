@@ -2,8 +2,10 @@
 """``metrics.stack_fused``'s per-run record and its compute probe, on the
 7-frame 160^2 spiral of ``tests/test_resident_stack.py``:
 
-- ``LAST_RUN_PERF`` holds the JAX package's keys after every
-  ``speckle_stack_stats`` call; a host stack counts its uploads in its own
+- ``LAST_RUN_PERF`` holds the JAX package's keys, and the port's three
+  counts of how the metric step ran (``GRAPH_KEYS``: on the CPU every step
+  is eager), after every ``speckle_stack_stats`` call; a host stack counts
+  its uploads in its own
   dtype, a tensor stack is ``resident`` with none, a resumed checkpoint runs
   no chunk, a mesh counts the port's own chunks, and the outputs of every
   run stay exactly those of the host run;
@@ -28,6 +30,7 @@ torch.set_num_threads(2)
 
 KW = dict(metrics="all", tiles=False, verbose=False, frame_chunk=2, grain_maps=False)
 JAX_KEYS = {"upload_s", "dispatch_s", "pull_wait_s", "upload_io_s", "upload_bytes", "pull_bytes", "chunks"}
+GRAPH_KEYS = {"graph_replays", "graph_captures", "eager_steps"}
 PROBE = dict(groups={"amplitude", "stats"}, mode="off", sat=65535.0, eps=1e-12, flip=True)
 
 
@@ -76,9 +79,11 @@ def _assert_same_outputs(a, b, rtol=0.0):
 def test_host_run_records_the_jax_keys_and_its_uploads(spiral_stack, host_run):
     jm.speckle_stack_stats(spiral_stack, **KW)
     _, perf = host_run
-    assert set(perf) == set(j_fused.LAST_RUN_PERF) == JAX_KEYS
+    assert set(j_fused.LAST_RUN_PERF) == JAX_KEYS
+    assert set(perf) == JAX_KEYS | GRAPH_KEYS
     T, H, W = spiral_stack.shape
     assert perf["chunks"] == len(chunk_layout_signature(T, 2)) == 4
+    assert perf["eager_steps"] == 4 and perf["graph_replays"] == perf["graph_captures"] == 0
     assert perf["upload_bytes"] == spiral_stack.nbytes
     assert perf["upload_io_s"] == perf["upload_s"] > 0.0  # no card: the host's time
     assert perf["dispatch_s"] > 0.0 and perf["pull_wait_s"] >= 0.0
@@ -97,7 +102,7 @@ def test_tensor_run_is_resident_with_no_upload(spiral_stack, host_run):
     out = tm.speckle_stack_stats(torch.from_numpy(spiral_stack), **KW)
     perf = dict(stack_fused.LAST_RUN_PERF)
     assert perf.pop("resident") is True
-    assert set(perf) == JAX_KEYS
+    assert set(perf) == JAX_KEYS | GRAPH_KEYS
     assert perf["upload_bytes"] == 0 and perf["upload_s"] == 0.0 and perf["upload_io_s"] == 0.0
     assert perf["chunks"] == 4 and perf["pull_bytes"] == host_run[1]["pull_bytes"]
     _assert_same_outputs(out, host_run[0])
@@ -108,8 +113,9 @@ def test_resumed_checkpoint_runs_no_chunk(spiral_stack, host_run, tmp_path):
     assert stack_fused.LAST_RUN_PERF["chunks"] == 4
     again = tm.speckle_stack_stats(spiral_stack, device="cpu", checkpoint_dir=tmp_path, **KW)
     perf = stack_fused.LAST_RUN_PERF
-    assert set(perf) == JAX_KEYS
+    assert set(perf) == JAX_KEYS | GRAPH_KEYS
     assert perf["chunks"] == 0 and perf["upload_bytes"] == 0 and perf["pull_bytes"] == 0
+    assert perf["eager_steps"] == perf["graph_replays"] == perf["graph_captures"] == 0
     _assert_same_outputs(first, host_run[0])
     _assert_same_outputs(again, host_run[0])
 

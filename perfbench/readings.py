@@ -35,7 +35,6 @@ def main(argv=None) -> int:
 
     import torch
 
-    from perfbench.gen.speckle import make_pool
     from perfbench.reference.common import Precision
 
     spec = load_cell(a.workload)
@@ -56,9 +55,10 @@ def main(argv=None) -> int:
               "numbers": {n: c["value"] for n, c in line["checks"].items()},
               "seconds": time.perf_counter() - t0})
     entry = load_module("entries", traffic["entry"])
+    gen = load_module("gen", traffic["input"])
     for seed in a.control_seeds:
         t0 = time.perf_counter()
-        pool = make_pool(seed, config, traffic, torch.device(a.device))
+        pool = gen.make_pool(seed, config, traffic, torch.device(a.device))
         numbers = entry.control(pool, traffic["args"], a.device, Precision(a.control), random.Random(seed), config, log)
         emit({"cell": a.workload, "side": f"control {a.control}", "seed": seed, "numbers": numbers,
               "seconds": time.perf_counter() - t0})

@@ -5,9 +5,11 @@
 Everything about a cell is found by name: ``BENCHMARK.json`` names its
 configuration and traffic mix; ``perfbench/configs/<config>.json`` holds the
 detector, the content and the analysis settings; ``perfbench/traffic/<mix>.json``
-the entry it drives, the call's arguments, the pool of inputs, the traced
-sub-windows and the limits of the comparison; ``perfbench/entries/<entry>.py``
-how to call the entry and how to judge its results;
+the entry it drives, the call's arguments, the kind and pool of inputs, the
+traced sub-windows and the limits of the comparison;
+``perfbench/gen/<input>.py`` how to make that kind of input;
+``perfbench/entries/<entry>.py`` how to call the entry and how to judge its
+results;
 ``perfbench/end_to_end/<metric>.py`` and ``perfbench/layer_metrics/<metric>.py``
 one reader each.
 
@@ -62,6 +64,8 @@ def log(msg: str) -> None:
 def load_module(kind: str, name: str):
     """``perfbench/<kind>/<name>.py`` as a module (names may hold dots)."""
     path = BENCH / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"{kind} {name!r}: no file {path}")
     spec = importlib.util.spec_from_file_location(f"perfbench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -99,13 +103,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device, *, overr
     ``min_calls`` calls."""
     import torch
 
-    from perfbench.gen.speckle import make_pool
     from perfbench.trace import profile_calls
 
     spec = load_cell(cell)
     config, traffic = spec["config"], spec["traffic"]
     for key, val in (overrides or {}).items():
         (traffic if key == "traffic" else config.setdefault(key, {})).update(val)
+    gen = load_module("gen", traffic["input"])
     cuda = torch.device(device).type == "cuda"
     import barc4dip_tpu_torch as port
 
@@ -116,7 +120,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device, *, overr
         if cuda:
             torch.cuda.synchronize()
 
-    pool = make_pool(seed, config, traffic, torch.device(device))
+    pool = gen.make_pool(seed, config, traffic, torch.device(device))
     for k in range(int(traffic["warmup_calls"])):
         entry.call(port, pool[k % len(pool)], args, device)
     gc.collect()

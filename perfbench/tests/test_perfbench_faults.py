@@ -169,10 +169,8 @@ def test_the_control_is_refused(cell):
     one limit."""
     spec = run.load_cell(cell)
     traffic = {**spec["traffic"], **TINY[cell]}
-    from perfbench.gen.speckle import make_pool
-
     config = {**spec["config"], "detector": {**spec["config"]["detector"], **SMALL["detector"]}}
-    pool = make_pool(2**33 + 9, config, traffic, torch.device("cpu"))
+    pool = run.load_module("gen", traffic["input"]).make_pool(2**33 + 9, config, traffic, torch.device("cpu"))
     entry = run.load_module("entries", traffic["entry"])
     numbers = entry.control(pool, traffic["args"], "cpu", Precision("bfloat16"), random.Random(1), config)
     limits = traffic["limits"]

@@ -11,8 +11,8 @@ import sys, json, glob, os
 sys.path.insert(0, {root!r})
 from perfbench import run, compare, trace, readings  # noqa
 from perfbench.gen import speckle  # noqa
-for kind in ("entries", "layer_metrics", "end_to_end"):
-    for path in sorted(glob.glob(os.path.join({root!r}, "perfbench", kind, "*.py"))):
+for kind in ("gen", "entries", "layer_metrics", "end_to_end"):
+    for path in sorted(glob.glob(os.path.join({root!r}, "perfbench", kind, "[!_]*.py"))):
         run.load_module(kind, os.path.basename(path)[:-3])
 line = run.run_cell("speckle_2k.stack100", 5, 0.0, True, "cpu",
                     overrides={{"detector": {{"height": 384, "width": 384}},

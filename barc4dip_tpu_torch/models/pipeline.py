@@ -26,6 +26,7 @@ from ..metrics.tracking_batch import _extract_tiles
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
 from ..preprocessing.normalize import flat_field_correction
+from ..utils.profiling import annotate
 
 __all__ = [
     "SharpnessScanPipeline",
@@ -71,6 +72,7 @@ class WavefrontScanPipeline:
         self.mesh = mesh
         self.device = device
 
+    @annotate("entry.wavefront_scan")
     def __call__(self, stack, reference=None, *, verbose: bool = False) -> dict:
         from ..signal.xst import (
             track_displacement_field,

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..config import resolve_device
+from ..utils.profiling import annotate
 from . import cuda_densetrack
 from .cuda_densetrack import grid_patches
 from .momentscore import nanmean2d, nanstd2d
@@ -126,7 +127,9 @@ def _centred_tiles(ref, y0s, x0s, s: int):
 def _pallas_corr(img3, ref, y0s, x0s, s: int, r: int, eps: float):
     """NCC field (F*N, L, L) of F frames against one reference via K3."""
     _t, energy = _centred_tiles(ref, y0s, x0s, s)
-    num, s1, s2 = (a.to(img3.dtype) for a in cuda_densetrack.ncc_sums(ref, img3, y0s, x0s, s, r))
+    with annotate("k3"):
+        sums = cuda_densetrack.ncc_sums(ref, img3, y0s, x0s, s, r)
+    num, s1, s2 = (a.to(img3.dtype) for a in sums)
     return _ncc_from_sums(num, s1, s2, energy.repeat(img3.shape[0]), s, eps)
 
 

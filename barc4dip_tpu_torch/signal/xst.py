@@ -13,8 +13,15 @@ numpy frames are uploaded to the device of a tensor argument, else to
 ``device`` (``None``: the card, and an error without one). Displacement
 results come back to the
 host as float32 numpy arrays.
+
+:data:`LAST_RUN_PERF` keeps the host split of the last stack tracked and
+of the last wavefront integrated; spans (``utils/profiling.annotate``)
+mark the stack entry, each batch's enqueue (``xst.batch``), each result
+pull (``pull.wait``) and the integration (``xst.integrate``).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -26,12 +33,27 @@ from ..ops.densetrack import (
     dense_track_stack_program,
     resolve_track_method,
 )
+from ..utils.profiling import annotate
 
 __all__ = [
+    "LAST_RUN_PERF",
     "track_displacement_field",
     "track_displacement_stack",
     "wavefront_from_displacements",
 ]
+
+#: Host split of the last tracking call (:func:`track_displacement_field`,
+#: :func:`track_displacement_stack`), which resets every key: ``batches``
+#: (tracking programs enqueued), ``frames`` (frames tracked),
+#: ``pull_wait_s`` (seconds pulling results to the host, waiting for the
+#: device); and ``integrate_s``, the seconds of the last
+#: :func:`wavefront_from_displacements`, which resets that key alone.
+LAST_RUN_PERF: dict = {}
+
+
+def _reset_perf() -> None:
+    LAST_RUN_PERF.clear()
+    LAST_RUN_PERF.update(batches=0, frames=0, pull_wait_s=0.0, integrate_s=0.0)
 
 
 def _device_of(device, *arrays) -> torch.device:
@@ -89,6 +111,7 @@ def track_displacement_field(
     ``peak`` (gy, gx) NCC peak values; ``y``, ``x`` grid node centres [px];
     ``meta`` (geometry record, with the resolved ``method``).
     """
+    _reset_perf()
     if img.ndim != 2 or ref.ndim != 2 or tuple(img.shape) != tuple(ref.shape):
         raise ValueError(
             f"img and ref must be equal-shape 2D images; got "
@@ -99,7 +122,9 @@ def track_displacement_field(
     s, r, step = int(tile_size), int(search_radius), int(step)
     method = resolve_track_method(str(method), device)
     program, (y0s, x0s) = dense_track_program(H, W, s, r, step, bool(subpixel), method)
-    dy, dx, peak = _host(*program(_on(img, device), _on(ref, device), float(np.float32(eps))))
+    out = program(_on(img, device), _on(ref, device), float(np.float32(eps)))
+    LAST_RUN_PERF.update(batches=1, frames=1)
+    dy, dx, peak = _pull(out)
 
     half = (s - 1) / 2.0
     return {
@@ -113,6 +138,7 @@ def track_displacement_field(
     }
 
 
+@annotate("entry.track_displacement_stack")
 def track_displacement_stack(
     stack,
     ref=None,
@@ -140,6 +166,7 @@ def track_displacement_stack(
     the dict of :func:`track_displacement_field` with a leading T axis on
     ``dy``/``dx``/``peak``.
     """
+    _reset_perf()
     if not hasattr(stack, "ndim"):  # a lazy frame view stays lazy
         stack = np.asarray(stack)
     if stack.ndim != 3:
@@ -166,22 +193,23 @@ def track_displacement_stack(
         Fb = 1
         program, (y0s, x0s) = dense_track_program(H, W, s, r, step, subpixel, resolved)
 
-    def chunks():
-        """(frames on the device, frames valid), uploaded as the loop asks."""
-        for c0 in range(0, T, Fb):
-            c1 = min(c0 + Fb, T)
-            if Fb == 1:
-                yield _on(stack[c0], device), 1
-                continue
-            chunk = _on(stack[c0:c1], device)
-            if c1 - c0 < Fb:  # pad the tail to the batch's shape
-                chunk = torch.cat([chunk, chunk[-1:].expand(Fb - (c1 - c0), H, W)])
-            yield chunk, c1 - c0
+    def upload_chunk(c0: int):
+        """(frames c0.. of one batch on the device, frames valid)."""
+        c1 = min(c0 + Fb, T)
+        if Fb == 1:
+            return _on(stack[c0], device), 1
+        chunk = _on(stack[c0:c1], device)
+        if c1 - c0 < Fb:  # pad the tail to the batch's shape
+            chunk = torch.cat([chunk, chunk[-1:].expand(Fb - (c1 - c0), H, W)])
+        return chunk, c1 - c0
 
     dys, dxs, peaks = [], [], []
     pending = None  # (device results, frames valid): pulled one call behind
-    for chunk, n in chunks():
-        out = program(chunk, ref_dev, eps)
+    for c0 in range(0, T, Fb):
+        with annotate("xst.batch"):
+            chunk, n = upload_chunk(c0)
+            out = program(chunk, ref_dev, eps)
+        _count_batch(n)
         if pending is not None:
             _collect(pending, dys, dxs, peaks)
         pending = (out, n)
@@ -202,7 +230,9 @@ def _track_stack_mesh(stack, ref, mesh, T, H, W, s, r, step, subpixel, eps, meth
     pending: list = []
     for t in range(T):
         d = devices[t % len(devices)]
-        pending.append((program(_on(stack[t], d), refs[d], eps), 1))
+        with annotate("xst.batch"):
+            pending.append((program(_on(stack[t], d), refs[d], eps), 1))
+        _count_batch(1)
         if len(pending) > len(devices):
             _collect(pending.pop(0), dys, dxs, peaks)
     for item in pending:
@@ -223,11 +253,25 @@ def _stack_result(dys, dxs, peaks, y0s, x0s, shape, s, step, r, subpixel, method
     }
 
 
+def _count_batch(n: int) -> None:
+    LAST_RUN_PERF["batches"] += 1
+    LAST_RUN_PERF["frames"] += n
+
+
+def _pull(out, n=None):
+    """Device results to the host, the wait counted in ``pull_wait_s``."""
+    t0 = time.perf_counter()
+    with annotate("pull.wait"):
+        host = _host(*out, n=n)
+    LAST_RUN_PERF["pull_wait_s"] += time.perf_counter() - t0
+    return host
+
+
 def _collect(pending, dys, dxs, peaks) -> None:
     out, n = pending
     if out[0].dim() == 2:  # one frame: add its T axis
         out = tuple(a[None] for a in out)
-    dy, dx, pk = _host(*out, n=n)
+    dy, dx, pk = _pull(out, n=n)
     dys.append(dy)
     dxs.append(dx)
     peaks.append(pk)
@@ -258,10 +302,13 @@ def wavefront_from_displacements(
     def surface_of(gy, gx):
         return integrate_gradients(gy, gx, dy=grid_step, dx=grid_step).numpy()
 
-    if slope_y.ndim == 3:  # displacement_stack: integrate per frame
-        surface = np.stack([surface_of(gy, gx) for gy, gx in zip(slope_y, slope_x)])
-    else:
-        surface = surface_of(slope_y, slope_x)
+    t0 = time.perf_counter()
+    with annotate("xst.integrate"):
+        if slope_y.ndim == 3:  # displacement_stack: integrate per frame
+            surface = np.stack([surface_of(gy, gx) for gy, gx in zip(slope_y, slope_x)])
+        else:
+            surface = surface_of(slope_y, slope_x)
+    LAST_RUN_PERF["integrate_s"] = time.perf_counter() - t0
     out = {
         "wavefront": surface,
         "slope_y": slope_y,

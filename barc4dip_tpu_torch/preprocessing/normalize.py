@@ -2,15 +2,16 @@
 """Flat-field (gain) correction (counterpart of
 ``barc4dip_tpu/preprocessing/normalize.py``).
 
-``(I - D) / (F - D) * scale`` with stacked flats/darks mean-reduced on the
-host in float32, bad pixels (den <= eps) zeroed and optionally repaired by
-the 3x3 median (kernel K2 on CUDA), scale in {none, flat_mean,
-flat_median}, float32 output.
+``(I - D) / (F - D) * scale`` with stacked flats/darks mean-reduced in
+float32 on the compute device from their raw counts, bad pixels (den <=
+eps) zeroed and optionally repaired by the 3x3 median (kernel K2 on CUDA),
+scale in {none, flat_mean, flat_median}, float32 output.
 
 Each call leaves its host split in :data:`LAST_RUN_PERF`, and marks its
-stages with spans (``utils/profiling.annotate``): ``ffc.calib`` (the host
-reduction of flats and darks), ``ffc.upload`` (the float32 conversion and
-the copies to the device) and ``k2`` (the 3x3 median repair).
+stages with spans (``utils/profiling.annotate``): ``ffc.calib`` (the copies
+of flats and darks to the device and their reduction there),
+``ffc.upload`` (the images' float32 conversion and copy to the device) and
+``k2`` (the 3x3 median repair).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, to_compute, upload
 from ..ops.quantile import median_exact, nanmedian_exact
 from ..ops.rank import median_filter2d
 from ..utils.profiling import annotate
@@ -27,10 +28,12 @@ from ..utils.profiling import annotate
 __all__ = ["LAST_RUN_PERF", "flat_field_correction"]
 
 #: Host split of the last :func:`flat_field_correction` call: ``calib_s``
-#: (seconds reducing the stacked flats and darks on the host),
-#: ``calib_bytes`` (the bytes of flats and darks reduced) and ``upload_s``
-#: (seconds converting the images to float32 and copying images, flat and
-#: dark to the device). Reset at the start of every call.
+#: (host-clock seconds of the calibration stage: copying the flats and darks
+#: to the device in their own dtype and enqueueing their reduction),
+#: ``calib_bytes`` (the raw bytes of flats and darks), ``calib_device_frames``
+#: (the frames of stacked flats and darks reduced on a device) and
+#: ``upload_s`` (seconds converting the images to float32 and copying them to
+#: the device). Reset at the start of every call.
 LAST_RUN_PERF: dict = {}
 
 
@@ -63,10 +66,40 @@ def _ffc(img, flat2d, dark2d, eps, *, scale: str, bad_pixel_removal: bool):
     return out.to(torch.float32)
 
 
-def _host_f32(arr) -> np.ndarray:
-    if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
-    return np.asarray(arr, dtype=np.float32)
+def _frame_f32(frame, device) -> torch.Tensor:
+    """One raw frame as float32 on ``device``: the bytes travel in the
+    frame's own dtype and the cast happens there."""
+    if isinstance(frame, torch.Tensor):
+        t = to_compute(frame.detach().to(device))
+    else:
+        t = upload(frame, device)
+    return t.to(torch.float32)
+
+
+def _calibration(arr, device, perf) -> torch.Tensor | None:
+    """A flats or darks input as one float32 frame on ``device``.
+
+    A stack is summed frame by frame into one float32 accumulator and
+    divided by its frame count: integer counts sum exactly below 2**24, so
+    the quotient is the host's float32 mean bit for bit, and the transient
+    is a few frames. A tensor on a card is reduced where it lives; anything
+    else is reduced on ``device``."""
+    if arr is None:
+        return None
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
+    if arr.ndim == 2:
+        return _frame_f32(arr, device)
+    if arr.ndim != 3:
+        raise ValueError("flats/darks must be 2D or 3D")
+    on_card = isinstance(arr, torch.Tensor) and arr.device.type != "cpu"
+    where = arr.device if on_card else device
+    acc = torch.zeros(arr.shape[1:], dtype=torch.float32, device=where)
+    for frame in arr:
+        acc += _frame_f32(frame, where)
+    perf["calib_device_frames"] += int(arr.shape[0])
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python scalar
+    return acc.div_(torch.full((), float(arr.shape[0]), device=where)).to(device)
 
 
 def _nbytes(arr) -> int:
@@ -104,7 +137,7 @@ def flat_field_correction(
     t0 = time.perf_counter()
     perf = LAST_RUN_PERF
     perf.clear()
-    perf.update(calib_s=0.0, calib_bytes=0, upload_s=0.0)
+    perf.update(calib_s=0.0, calib_bytes=0, calib_device_frames=0, upload_s=0.0)
     if scale not in {"none", "flat_mean", "flat_median"}:
         raise ValueError(f"Invalid scale option: {scale}")
     if images.ndim not in {2, 3}:
@@ -113,20 +146,12 @@ def flat_field_correction(
     device_in = isinstance(images, torch.Tensor)
     if as_numpy is None:
         as_numpy = not device_in
-
-    def _reduce_stack(arr):
-        if arr is None:
-            return None
-        if arr.ndim == 3:
-            return _host_f32(arr).mean(axis=0)
-        if arr.ndim == 2:
-            return _host_f32(arr)
-        raise ValueError("flats/darks must be 2D or 3D")
+    device = images.device if device_in else resolve_device(device)
 
     tc = time.perf_counter()
     with annotate("ffc.calib"):
-        flat2d = _reduce_stack(flats)
-        dark2d = _reduce_stack(darks)
+        flat = _calibration(flats, device, perf)
+        dark = _calibration(darks, device, perf)
     perf["calib_s"] = time.perf_counter() - tc
     perf["calib_bytes"] = _nbytes(flats) + _nbytes(darks)
 
@@ -141,18 +166,13 @@ def flat_field_correction(
     with annotate("ffc.upload"):
         if device_in:
             img = images.to(torch.float32)
-            device = images.device
         else:
             img = torch.from_numpy(np.array(images, dtype=np.float32))
-            device = resolve_device(device)
-        calibrated = flat2d is not None or dark2d is not None
+        calibrated = flat is not None or dark is not None
         if calibrated:
             img = img.to(device)
-            dark = (
-                torch.zeros((), dtype=torch.float32, device=device) if dark2d is None
-                else torch.from_numpy(dark2d).to(device)
-            )
-            flat = None if flat2d is None else torch.from_numpy(flat2d).to(device)
+            if dark is None:
+                dark = torch.zeros((), dtype=torch.float32, device=device)
     perf["upload_s"] = time.perf_counter() - tu
 
     if not calibrated:

@@ -106,6 +106,42 @@ def test_flatfield_on_cpu_launches_nothing():
     assert cuda_median.LAUNCHES == {"median3x3": 0} and cuda_median.PLAIN_BY_SHAPE == {}
 
 
+def _stacks(kind, seed=6):
+    """10 flats and 10 darks as raw counts, in the residence and dtype of ``kind``."""
+    rng = np.random.default_rng(seed)
+    gain = rng.normal(2.0, 0.1, size=(SIDE, SIDE))
+    flats = np.round(gain * 10000.0 + 100.0 + rng.normal(0, 30, size=(10, SIDE, SIDE)))
+    darks = np.round(100.0 + rng.normal(0, 2, size=(10, SIDE, SIDE)))
+    flats[:, rng.random((SIDE, SIDE)) < 0.01] = 90.0  # flat <= dark: a dead pixel
+    if kind == "float32":
+        return (flats * 1.001).astype(np.float32), (darks * 1.001).astype(np.float32)
+    flats, darks = flats.astype(np.uint16), darks.astype(np.uint16)
+    if kind == "torch_uint16":
+        return torch.from_numpy(flats), torch.from_numpy(darks)
+    return flats, darks
+
+
+def _host_mean(stack):
+    return np.asarray(stack, dtype=np.float32).mean(axis=0)
+
+
+@pytest.mark.parametrize("which", ["flats_and_darks", "flats_only"])
+@pytest.mark.parametrize("kind", ["numpy_uint16", "torch_uint16", "float32"])
+def test_stacked_calibration_equals_its_host_float32_means(kind, which):
+    raw, *_ = _calibration(seed=7)
+    flats, darks = _stacks(kind)
+    if which == "flats_only":
+        darks = None
+    kw = dict(scale="flat_median", bad_pixel_removal=True)
+    got = flat_field_correction(raw, flats=flats, darks=darks, **kw)
+    want = flat_field_correction(raw, flats=_host_mean(flats),
+                                 darks=None if darks is None else _host_mean(darks), **kw)
+    if kind == "float32":  # float stacks: the sums round, in another order than numpy's may
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    else:  # integer counts sum exactly: the quotient is the host's mean bit for bit
+        np.testing.assert_array_equal(got, want)
+
+
 def _range_inputs():
     rng = np.random.default_rng(11)
     frames = rng.gamma(2.0, 300.0, size=(3, 48, 40)).astype(np.float32)

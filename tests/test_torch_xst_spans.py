@@ -1,7 +1,8 @@
 # SPDX-License-Identifier: CECILL-2.1
 """The XST path's spans and counters, read from a CPU ``torch.profiler``
-Chrome trace: the flat-field's ``ffc.calib``, ``ffc.upload`` and ``k2``
-inside ``entry.flat_field_correction``; the wavefront scan's
+Chrome trace: the flat-field's ``ffc.calib`` (with ``config.upload``'s
+``upload`` inside it, one a raw flat or dark frame), ``ffc.upload`` and
+``k2`` inside ``entry.flat_field_correction``; the wavefront scan's
 ``entry.track_displacement_stack``, ``xst.batch`` (one a batch), ``k3`` (one
 a K3 call), ``pull.wait`` (one a batch) and ``xst.integrate`` inside
 ``entry.wavefront_scan``; ``normalize.LAST_RUN_PERF`` and
@@ -60,6 +61,7 @@ def _spans(tmp_path):
 EXPECTED = {
     "entry.flat_field_correction": (None, 2),
     "ffc.calib": ("entry.flat_field_correction", 2),
+    "upload": ("ffc.calib", 2 * (FLATS.shape[0] + DARKS.shape[0])),  # one a raw flat or dark frame
     "ffc.upload": ("entry.flat_field_correction", 2),
     "k2": ("entry.flat_field_correction", 2),
     "entry.wavefront_scan": (None, 1),
@@ -88,10 +90,12 @@ def test_each_span_nests_in_its_entry_once_a_call_or_batch(tmp_path):
 def test_counters_are_reset_for_each_call_and_carry_their_keys():
     normalize.flat_field_correction(RAW, flats=FLATS, darks=DARKS, device="cpu")
     perf = dict(normalize.LAST_RUN_PERF)
-    assert set(perf) == {"calib_s", "calib_bytes", "upload_s"}
+    assert set(perf) == {"calib_s", "calib_bytes", "calib_device_frames", "upload_s"}
     assert perf["calib_bytes"] == FLATS.nbytes + DARKS.nbytes and perf["calib_s"] > 0 and perf["upload_s"] > 0
+    assert perf["calib_device_frames"] == FLATS.shape[0] + DARKS.shape[0]
     normalize.flat_field_correction(RAW, flats=FLATS[0], device="cpu")
     assert normalize.LAST_RUN_PERF["calib_bytes"] == FLATS[0].nbytes
+    assert normalize.LAST_RUN_PERF["calib_device_frames"] == 0
 
     scan()
     perf = dict(xst.LAST_RUN_PERF)

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """Display origin, group selection, the tiling policy with its batched
 tile executor, the tile schema, the stack chunk layout and the chunk loop
-of a per-frame program (counterpart of ``barc4dip_tpu/metrics/common.py``).
+of every stack path (counterpart of ``barc4dip_tpu/metrics/common.py``).
 
 Tiles are cut with static slices and grouped into equal-shape buckets
 (split_edges gives at most two sizes per axis); each bucket becomes one
@@ -12,14 +12,16 @@ JAX package ramps its first and last chunks on one device; both layouts
 give equal results (``tests/test_aggregators.py``,
 ``test_ramped_chunk_schedule_matches_single_chunk``).
 
-:func:`run_stack_program` is the port's own chunk loop, not a translation:
-the JAX package's padded uploads, prefetch pool and chunk ramp answer a
-hosted link and fixed compiled shapes, which a card on the host's own bus
-and eager PyTorch do not have.
+:func:`run_chunks` is the port's one chunk loop, which every stack path
+runs its step through (``stack_fused``; :func:`run_stack_program`), and
+not a translation: the JAX package's padded uploads, prefetch pool and
+chunk ramp answer a hosted link and fixed compiled shapes, which a card on
+the host's own bus and eager PyTorch do not have.
 """
 from __future__ import annotations
 
 import math
+import time
 import warnings
 from functools import lru_cache
 from typing import Callable, Literal, Sequence
@@ -293,33 +295,34 @@ def tiled_scalar_fields(
 # Chunked stack execution
 # ---------------------------------------------------------------------------
 
+def _loader(stack, device):
+    """``load(c0, c1)``: frames [c0, c1) of a host stack uploaded to
+    ``device`` (:func:`..config.upload`), or of a tensor stack moved there
+    (a no-op on its own device) and cast there, as a compute-dtype tensor."""
+    if isinstance(stack, torch.Tensor):
+        return lambda c0, c1: to_compute(stack[c0:c1].to(device))
+    return lambda c0, c1: upload(stack[c0:c1], device)
+
+
 def frame_loader(stack, device=None, mesh=None):
     """(device, load): ``load(c0, c1)`` gives frames [c0, c1) of a host
     stack or a tensor stack as a compute-dtype tensor on ``device``. A
     tensor stack stays on its own device. Under a ``mesh``, a host stack
     loads onto the mesh's first device and ``device`` is not used."""
     if isinstance(stack, torch.Tensor):
-        return stack.device, lambda c0, c1: to_compute(stack[c0:c1])
-    if mesh is not None:
-        device = mesh.devices[0]
-    device = resolve_device(device)
-    return device, lambda c0, c1: upload(stack[c0:c1], device)
+        device = stack.device
+    else:
+        device = resolve_device(mesh.devices[0] if mesh is not None else device)
+    return device, _loader(stack, device)
 
 
 def shard_loaders(stack, device=None, mesh=None) -> list:
     """One (device, load) per shard of a chunk: :func:`frame_loader`'s
-    alone without a mesh, else one a mesh entry, whose ``load(c0, c1)``
-    uploads host frames [c0, c1) to that entry's device, or moves a tensor
-    stack's slice there in its own dtype and casts it there."""
+    alone without a mesh, else one a mesh entry, loading onto that entry's
+    device."""
     if mesh is None:
         return [frame_loader(stack, device)]
-
-    def loader(dev):
-        if isinstance(stack, torch.Tensor):
-            return lambda c0, c1: to_compute(stack[c0:c1].to(dev))
-        return lambda c0, c1: upload(stack[c0:c1], dev)
-
-    return [(dev, loader(dev)) for dev in mesh.devices]
+    return [(dev, _loader(stack, dev)) for dev in mesh.devices]
 
 
 def chunk_from_shards(shards) -> dict:
@@ -387,40 +390,53 @@ def unpack_leaves(flat: np.ndarray, spec) -> dict:
     return out
 
 
-def run_stack_program(
-    stack, program, *, frame_chunk: int = 4, flip: bool = False, mesh=None,
-    checkpoint=None, device=None,
-):
-    """Run a per-frame metric program over a (T, H, W) stack in uniform
-    chunks of ``frame_chunk`` frames (:func:`chunk_layout_signature`; the
-    last chunk holds what is left).
+def run_chunks(stack, step, *, frame_chunk: int = 4, mesh=None, checkpoint=None, device=None):
+    """The chunk loop of every stack path: ``(tree, record)`` of a (T, H,
+    W) host array or tensor run in uniform chunks of ``frame_chunk`` frames
+    (:func:`chunk_layout_signature`), each cut into one contiguous shard a
+    placement (:func:`shard_loaders`; a tail chunk's empty shards skipped).
 
-    ``program`` maps (B, H, W) frames in their compute dtype to a tree of
-    (B, ...) tensors. A numpy stack's chunks are uploaded in their own
-    dtype from pinned memory without blocking; a tensor stack is sliced on
-    its own device with no upload. Integer frames are cast on the device,
-    and with ``flip`` the rows are reversed there. Each chunk's results
-    leave the device as one vector, pulled one chunk behind, so the host
-    unpacks chunk k while chunk k+1 runs. ``checkpoint`` is a
+    For each shard, ``step(device, first, carry)`` runs under ``chunk``
+    before the shard's load, so what it reads of the stack stays outside
+    the load and the enqueue, and returns ``enqueue(shard) -> (flat, spec,
+    carry)``, run under ``chunk.enqueue``: it pops the shard's frames
+    (compute dtype, on ``device``) from the one-item list ``shard``, so the
+    loop keeps no reference that would outlive a copy the step makes, and
+    enqueues their (n, L) result vector and its :func:`pack_leaves` spec.
+    ``first`` is the shard's first frame; ``carry`` is the previous
+    ``enqueue``'s, ``None`` for the
+    first shard run and after a chunk loaded from ``checkpoint`` (a
     :class:`..utils.checkpoint.ChunkStore`: chunks it holds are loaded, the
-    others run and are saved.
+    others run and are saved as their leaf tree). Each vector is pulled
+    without blocking and read one chunk behind.
 
-    With ``mesh`` (:func:`..parallel.frame_mesh`) a chunk holds a multiple
-    of ``mesh.size`` frames and is cut into one contiguous shard a mesh
-    entry: each shard is uploaded to (or, from a tensor stack, moved to) its
-    device, the program runs there, and each device's result vector comes
-    back one chunk behind under its own event. ``device`` is then not used.
-
-    Returns the program's tree with a leading T axis, as NumPy."""
+    ``tree``: every leaf with a leading T axis, as NumPy. ``record``:
+    ``upload_s`` (host seconds in a host stack's loads), ``upload_io_s``
+    (the card's time for those copies and casts, by CUDA events, the
+    largest sum over the devices; ``upload_s`` off a card), ``dispatch_s``
+    (host seconds from each load's end to its pull's enqueue),
+    ``pull_wait_s`` (waiting for and unpacking the pulls: the device time
+    shows here), ``upload_bytes`` (in the frames' own dtype),
+    ``pull_bytes``, ``chunks`` (run, not loaded), ``resident: True`` for a
+    tensor stack."""
     placements = shard_loaders(stack, device, mesh)
     T = int(stack.shape[0])
     width = -(-chunk_width(T, frame_chunk, mesh) // len(placements))
+    resident = isinstance(stack, torch.Tensor)
+    frame_bytes = 0 if resident else math.prod(stack.shape[1:]) * np.dtype(stack.dtype).itemsize
+    record = {"upload_s": 0.0, "dispatch_s": 0.0, "pull_wait_s": 0.0, "upload_bytes": 0, "pull_bytes": 0,
+              "chunks": 0}
+    if resident:
+        record["resident"] = True
+    copies: dict = {}  # device -> [(start, end)]: CUDA events around each host-stack load
     pieces: dict[int, dict] = {}
-    pending = None
+    pending = carry = None
 
     def collect(c0, shards):
+        t0 = time.perf_counter()
         with annotate("pull.wait"):
             piece = chunk_from_shards(shards)
+        record["pull_wait_s"] += time.perf_counter() - t0
         if checkpoint is not None:
             checkpoint.save(c0, unflatten_leaves(piece))
         pieces[c0] = piece
@@ -430,30 +446,78 @@ def run_stack_program(
         with annotate("chunk"):
             if checkpoint is not None and checkpoint.has(c0):
                 pieces[c0] = dict(_leaves(checkpoint.load(c0)))
+                carry = None
                 continue
             shards = []
             for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
                 if a == b:  # the tail chunk leaves the last shards empty
                     continue
-                frames = load(a, b)
-                with annotate("chunk.enqueue"):
-                    if flip:
-                        frames = torch.flip(frames, dims=[-2])
-                    with annotate("step.metrics"):
-                        result = program(frames)
-                    flat, spec = pack_leaves(result, b - a, frames.dtype)
+                enqueue = step(dev, a, carry)
+                timed_copy = not resident and dev.type == "cuda"
+                if timed_copy:
+                    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    ev[0].record(torch.cuda.current_stream(dev))
+                t0 = time.perf_counter()
+                shard = [load(a, b)]
+                t1 = time.perf_counter()
+                if timed_copy:
+                    ev[1].record(torch.cuda.current_stream(dev))
+                    copies.setdefault(dev, []).append(ev)
+                if not resident:
+                    record["upload_s"] += t1 - t0
+                    record["upload_bytes"] += (b - a) * frame_bytes
+                with annotate("chunk.enqueue"):  # one vector per shard leaves the device
+                    flat, spec, carry = enqueue(shard)
                     shards.append((*pull_to_host(flat, dev), spec))
+                record["dispatch_s"] += time.perf_counter() - t1
+                record["pull_bytes"] += flat.numel() * flat.element_size()
+            record["chunks"] += 1
             if pending is not None:
                 collect(*pending)
             pending = (c0, shards)
     if pending is not None:
         collect(*pending)
+    if copies:  # every copy precedes a result pull that collect waited for
+        record["upload_io_s"] = max(sum(a.elapsed_time(b) for a, b in evs) for evs in copies.values()) / 1e3
+    else:
+        record["upload_io_s"] = record["upload_s"]
 
     with annotate("entry.assemble"):
         ordered = [pieces[c0] for c0 in sorted(pieces)]
-        return unflatten_leaves(
-            {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
-        )
+        tree = unflatten_leaves({path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]})
+    return tree, record
+
+
+def run_stack_program(
+    stack, program, *, frame_chunk: int = 4, flip: bool = False, mesh=None,
+    checkpoint=None, device=None,
+):
+    """Run a per-frame metric program over a (T, H, W) numpy array or
+    tensor through :func:`run_chunks`.
+
+    ``program`` maps (B, H, W) frames in their compute dtype (a numpy
+    stack's chunks uploaded in their own dtype, a tensor stack sliced on its
+    own device, integer frames cast on the device) to a tree of (B, ...)
+    tensors; with ``flip`` the rows are reversed on the device first. With
+    ``mesh`` (:func:`..parallel.frame_mesh`) a chunk holds a multiple of
+    ``mesh.size`` frames, cut into one shard a mesh entry that runs on its
+    device; ``device`` is then not used.
+
+    Returns the program's tree with a leading T axis, as NumPy."""
+
+    def enqueue(shard):
+        frames = shard.pop()
+        if flip:
+            frames = torch.flip(frames, dims=[-2])
+        with annotate("step.metrics"):
+            result = program(frames)
+        return (*pack_leaves(result, frames.shape[0], frames.dtype), None)
+
+    tree, _ = run_chunks(
+        stack, lambda dev, first, carry: enqueue, frame_chunk=frame_chunk, mesh=mesh,
+        checkpoint=checkpoint, device=device,
+    )
+    return tree
 
 
 # ---------------------------------------------------------------------------

@@ -30,20 +30,18 @@ from .common import (
     apply_display_origin,
     choose_tiling_mode,
     chunk_layout_signature,
+    frame_loader,
     nan_std_grid_3x3,
     normalize_display_origin,
     normalize_groups,
     pack_mean_std,
     tiles_meta,
-)
-from .estimators import amplitude_core, bandwidth_core, grain_core, grain_map_core
-from .speckles_device import int_value_hint, metric_step, speckle_device_fn
-from .stack_fused import (
-    frame_loader,
-    run_fused_speckle_stack,
     unflatten_leaves,
     unpack_leaves,
 )
+from .estimators import amplitude_core, bandwidth_core, grain_core, grain_map_core
+from .speckles_device import int_value_hint, metric_step, speckle_device_fn
+from .stack_fused import run_fused_speckle_stack
 
 logger = logging.getLogger(__name__)
 
@@ -381,7 +379,7 @@ def _assemble_stack_output(raw: dict, mode: str) -> tuple[dict, dict | None]:
 def _attach_lazy_grain_maps(grain_out: dict, load, T: int, N: int, dtype, *, flip: bool) -> None:
     """Per-frame autocorr maps and lag axes of a stack's grain block: frame
     t's map is computed on the device from frame t of the caller's stack
-    (``load``, see ``stack_fused.frame_loader``) the first time it is
+    (``load``, see ``common.frame_loader``) the first time it is
     read."""
 
     def fetch(t: int) -> np.ndarray:

@@ -1,23 +1,19 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Chunked stack pipeline: per-frame metrics and abs/inc tracking
-(counterpart of ``barc4dip_tpu/metrics/stack_fused.py``).
+"""The speckle stack's step: per-frame metrics and abs/inc tracking
+(counterpart of ``barc4dip_tpu/metrics/stack_fused.py``), run a shard at a
+time by :func:`.common.run_chunks`, the chunk loop of every stack path
+(uploads, shards, pulls one chunk behind, checkpoints, stage timings).
 
-- a host stack's chunks are uploaded once each, in their own dtype, from
-  pinned memory without blocking, and cast on the device; a tensor stack
-  (the JAX package's device-resident path) is sliced on its own device and
-  cast there, with no upload and the same per-chunk math, so it gives
-  exactly the host stack's results;
-- the metric step and the tracker read that one copy; the tracker sees the
-  frames as they are, the metric step after the display-origin flip;
+- the metric step and the tracker read the shard's one copy of its frames
+  (a tensor stack's slice gives exactly the host stack's results); the
+  tracker sees them as they are, the metric step after the display-origin
+  flip;
 - on a card the metric step replays as CUDA graphs from its second chunk of
   a shape in the process (``speckles_device.metric_step``), and the tracker
   runs eagerly;
-- the chunk's last frame stays on the device as the next chunk's
-  incremental-tracking reference;
-- each chunk's results leave the device as one vector, copied without
-  blocking; the host unpacks chunk k while chunk k+1 runs;
-- with a checkpoint, chunks already on disk are loaded instead of run, and
-  the tracking reference after such a chunk is re-derived from the stack.
+- the frame-0 template bank is built once a device; a shard's last frame
+  stays on the device as the next shard's incremental-tracking reference,
+  read from the stack again after a chunk loaded from a checkpoint.
 
 Three trackers: ``template`` over the full frame (the NCC bank through
 kernel K1b), ``template`` in per-tile windows (``search`` px around each
@@ -38,45 +34,21 @@ import torch
 from ..config import device_constant, resolve_device, to_compute, upload
 from ..ops import ncc as ncc_ops
 from ..ops import phasecorr as pc_ops
-from ..parallel.mesh import shard_bounds
 from ..utils.profiling import annotate
-from .common import (
-    _leaves,
-    chunk_from_shards,
-    chunk_layout_signature,
-    chunk_width,
-    frame_loader,
-    pack_leaves,
-    pull_to_host,
-    shard_loaders,
-    unflatten_leaves,
-    unpack_leaves,
-)
+from . import common
+from .common import chunk_layout_signature, frame_loader, pack_leaves, unpack_leaves
 from .speckles_device import GRAPH_COUNTS, int_value_hint, metric_step, speckle_device_fn
 from .tracking_batch import _extract_tiles, _grid_geometry
 
-__all__ = [
-    "LAST_RUN_PERF",
-    "device_compute_probe",
-    "frame_loader",
-    "pack_leaves",
-    "run_fused_speckle_stack",
-    "unflatten_leaves",
-    "unpack_leaves",
-]
+__all__ = ["LAST_RUN_PERF", "device_compute_probe", "run_fused_speckle_stack"]
 
-#: Per-stage split of the last :func:`run_fused_speckle_stack` call, with
-#: the JAX package's keys: ``upload_s`` (host seconds in the shards' loads
-#: of a host stack: pinning and the non-blocking copy), ``upload_io_s`` (the
-#: card's time for those copies and their casts, by CUDA events around each
-#: load, the largest sum over the devices; ``upload_s`` on the CPU),
-#: ``dispatch_s`` (host seconds enqueuing the metric and tracking steps and
-#: the result pull), ``pull_wait_s`` (host seconds waiting for and unpacking
-#: the pulled results: the device time shows here), ``upload_bytes`` (host
-#: frames uploaded, in their own dtype), ``pull_bytes``, ``chunks`` (chunks
-#: run, not loaded from a checkpoint), and ``resident: True`` for a tensor
-#: stack. How the metric step ran (``speckles_device.GRAPH_COUNTS`` over the
-#: run): ``graph_replays`` (shards replayed as CUDA graphs),
+#: Per-stage split of the last :func:`run_fused_speckle_stack` call: the
+#: chunk loop's record (:func:`.common.run_chunks`), with the JAX package's
+#: keys ``upload_s``, ``upload_io_s``, ``dispatch_s`` (here the metric and
+#: tracking steps' enqueue and the result pull), ``pull_wait_s``,
+#: ``upload_bytes``, ``pull_bytes``, ``chunks`` and ``resident: True`` for a
+#: tensor stack; and how the metric step ran (``speckles_device.GRAPH_COUNTS``
+#: over the run): ``graph_replays`` (shards replayed as CUDA graphs),
 #: ``graph_captures`` (keys captured, in a shard that is also replayed) and
 #: ``eager_steps`` (shards run eagerly: every shard off a card, and on a
 #: card a key's first shard in the process).
@@ -280,102 +252,43 @@ def run_fused_speckle_stack(
 
     Returns (metrics tree with a leading T axis, as numpy;
     (dx_abs, dy_abs, dx_inc, dy_inc), each (T, 3, 3) float32)."""
-    placements = shard_loaders(stack, device, mesh)
     T, H, W = (int(v) for v in stack.shape)
-    width = -(-chunk_width(T, frame_chunk, mesh) // len(placements))
     bank, step = _stack_step(
         H, W, grid_slices, groups=groups, mode=mode, sat=sat, eps=eps, flip=flip, method=method,
         subpixel=subpixel, track_eps=track_eps, search_radius=search_radius,
         int_range=int_value_hint(stack.dtype),
     )
-    host_stack = not isinstance(stack, torch.Tensor)
-    frame_bytes = H * W * stack.dtype.itemsize if host_stack else 0
-    perf = {"upload_s": 0.0, "dispatch_s": 0.0, "pull_wait_s": 0.0, "upload_io_s": 0.0,
-            "upload_bytes": 0, "pull_bytes": 0, "chunks": 0}
-    ran = dict(GRAPH_COUNTS)
-    if not host_stack:
-        perf["resident"] = True
-    copies: dict = {}  # device -> [(start, end)]: CUDA events around each chunk upload
-
-    track_out = np.empty((4, T, 9), np.float32)  # dy_a, dx_a, dy_i, dx_i
-    pieces: dict[int, dict] = {}
-    pending = None
+    _, load = frame_loader(stack, device, mesh)
+    # a chunk checkpoint's keys: the metric leaves under "metrics", the tracks by name
+    paths = {f"track\0{i}": f"track\0{k}" for i, k in enumerate(_TRACK_KEYS)}
     frame0 = None
     tpl0: dict = {}  # the frame-0 bank, one a device
-    prev = None  # the incremental reference of the chunk's first frame
 
-    def store(c0, c1, metrics, tr):
-        pieces[c0] = metrics
-        track_out[:, c0:c1] = tr
+    def open_shard(dev, first, prev):
+        nonlocal frame0
+        if frame0 is None:  # read once, before the predecessor (a file view caches one frame)
+            frame0 = load(0, 1)[0]
+        if prev is None:  # the predecessor of frame 0 is frame 0 itself
+            prev = load(max(first - 1, 0), max(first, 1))[0]
+        if dev not in tpl0:
+            tpl0[dev] = bank(frame0.to(dev))
 
-    def collect(c0, c1, shards):
-        t0 = time.perf_counter()
-        with annotate("pull.wait"):
-            out = chunk_from_shards(shards)
-        perf["pull_wait_s"] += time.perf_counter() - t0
-        tr = np.stack([out.pop(f"track\0{i}") for i in range(4)])
-        if checkpoint is not None:
-            checkpoint.save(c0, {"metrics": unflatten_leaves(out), "track": dict(zip(_TRACK_KEYS, tr))})
-        store(c0, c1, out, tr)
+        def enqueue(shard):
+            frames = shard.pop()
+            flat, spec = step(frames, prev, tpl0[dev])
+            spec = [(paths.get(p, f"metrics\0{p}"), shape) for p, shape in spec]
+            return flat, spec, frames[-1].clone()  # not a view that keeps the whole chunk
 
-    chunk_starts = chunk_layout_signature(T, frame_chunk, mesh)
-    for c0, c1 in zip(chunk_starts, (*chunk_starts[1:], T)):
-        with annotate("chunk"):
-            if checkpoint is not None and checkpoint.has(c0):
-                piece = checkpoint.load(c0)
-                store(c0, c1, dict(_leaves(piece["metrics"])),
-                      np.stack([piece["track"][k] for k in _TRACK_KEYS]))
-                prev = None
-                continue
-            if frame0 is None:  # read once, before the predecessor (a file view caches one frame)
-                frame0 = placements[0][1](0, 1)[0]
-            if prev is None:  # the predecessor of frame 0 is frame 0 itself
-                prev = placements[0][1](max(c0 - 1, 0), max(c0, 1))[0]
-            shards = []
-            for (a, b), (dev, load) in zip(shard_bounds(c0, c1, len(placements), width), placements):
-                if a == b:  # the tail chunk leaves the last shards empty
-                    continue
-                if dev not in tpl0:
-                    tpl0[dev] = bank(frame0.to(dev))
-                timed_copy = host_stack and dev.type == "cuda"
-                if timed_copy:
-                    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                    ev[0].record(torch.cuda.current_stream(dev))
-                t0 = time.perf_counter()
-                frames = load(a, b)
-                t1 = time.perf_counter()
-                if timed_copy:
-                    ev[1].record(torch.cuda.current_stream(dev))
-                    copies.setdefault(dev, []).append(ev)
-                if host_stack:
-                    perf["upload_s"] += t1 - t0
-                    perf["upload_bytes"] += (b - a) * frame_bytes
-                with annotate("chunk.enqueue"):
-                    # one vector per shard leaves the device
-                    flat, spec = step(frames, prev, tpl0[dev])
-                    prev = frames[-1].clone()  # not a view that keeps the whole chunk
-                    shards.append((*pull_to_host(flat, dev), spec))
-                perf["dispatch_s"] += time.perf_counter() - t1
-                perf["pull_bytes"] += flat.numel() * flat.element_size()
-            perf["chunks"] += 1
-            if pending is not None:
-                collect(*pending)
-            pending = (c0, c1, shards)
-    if pending is not None:
-        collect(*pending)
-    if copies:  # every copy precedes a result pull that collect waited for
-        perf["upload_io_s"] = max(sum(a.elapsed_time(b) for a, b in evs) for evs in copies.values()) / 1e3
-    else:
-        perf["upload_io_s"] = perf["upload_s"]
-    perf.update({k: GRAPH_COUNTS[k] - ran[k] for k in GRAPH_COUNTS})
+        return enqueue
+
+    ran = dict(GRAPH_COUNTS)
+    tree, record = common.run_chunks(
+        stack, open_shard, frame_chunk=frame_chunk, mesh=mesh, checkpoint=checkpoint, device=device
+    )
     LAST_RUN_PERF.clear()
-    LAST_RUN_PERF.update(perf)
-
-    with annotate("entry.assemble"):
-        ordered = [pieces[c0] for c0 in sorted(pieces)]
-        metrics = {path: np.concatenate([p[path] for p in ordered]) for path in ordered[0]}
-    dy_a, dx_a, dy_i, dx_i = (a.reshape(T, 3, 3) for a in track_out)
-    return unflatten_leaves(metrics), (dx_a, dy_a, dx_i, dy_i)
+    LAST_RUN_PERF.update(record, **{k: GRAPH_COUNTS[k] - ran[k] for k in GRAPH_COUNTS})
+    dy_a, dx_a, dy_i, dx_i = (tree["track"][k].astype(np.float32).reshape(T, 3, 3) for k in _TRACK_KEYS)
+    return tree["metrics"], (dx_a, dy_a, dx_i, dy_i)
 
 
 def _probed_frames(T: int, H: int, W: int, frame_chunk: int, itemsize: int) -> int:

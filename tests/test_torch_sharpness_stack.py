@@ -10,6 +10,8 @@ a tensor stack and a resumed checkpoint exactly equal to their references.
 ``MIN_TILE_PX`` is lowered to 32 in both packages so that small frames
 reach the tiled modes.
 """
+import weakref
+
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
@@ -350,6 +352,28 @@ def test_run_stack_program_chunks_and_flip(frame_chunk):
         torch.from_numpy(stack.astype(np.uint16)), program, frame_chunk=frame_chunk)
     assert ints["n"].dtype == np.float32
     np.testing.assert_array_equal(ints["a"]["top"], stack[:, 0, 0])
+
+
+def test_run_stack_program_frees_the_frames_it_flipped(monkeypatch):
+    """With ``flip`` the program runs on a flipped copy, and the frames
+    loaded before it are freed by then: the chunk loop keeps no reference
+    to them, so a chunk is alive once, not twice, while the program runs."""
+    stack = np.arange(4 * 4 * 3, dtype=np.float64).reshape(4, 4, 3)
+    loaded, alive = [], []
+    real_flip = torch.flip
+
+    def flip(x, dims):
+        loaded.append(weakref.ref(x))
+        return real_flip(x, dims)
+
+    def program(frames):
+        alive.append(loaded[-1]() is not None)
+        return {"n": frames.sum((-2, -1))}
+
+    monkeypatch.setattr(torch, "flip", flip)
+    out = t_common.run_stack_program(stack, program, frame_chunk=2, flip=True, device="cpu")
+    np.testing.assert_array_equal(out["n"], stack.sum((1, 2)))
+    assert alive == [False, False]
 
 
 def test_aggregate_subtiles_9x9_to_3x3(rng):

@@ -9,7 +9,8 @@ package on the same seeded float64 stacks (tolerances per test):
   the JAX package's (1e-6 px: the trajectories are float32 leaves), clamped
   windows included, and both validation errors;
 - phase tracking (1e-6 px, and the known shift within 0.5 px);
-- checkpoints: store round trip, resume, partial resume, stale config, and
+- checkpoints: store round trip, resume, partial resume (unsharded and under
+  a two-entry mesh), the chunk file's keys, stale config, and
   a directory the JAX package wrote, which the port does not resume.
 """
 import numpy as np
@@ -22,6 +23,7 @@ import barc4dip_tpu.metrics as jm
 import barc4dip_tpu_torch.metrics as tm
 from barc4dip_tpu_torch.metrics import stack_fused
 from barc4dip_tpu_torch.metrics.speckles_device import int_value_hint
+from barc4dip_tpu_torch.parallel import frame_mesh
 from barc4dip_tpu_torch.utils import LazyMapStack
 from barc4dip_tpu_torch.utils.checkpoint import ChunkStore, config_hash
 from tests.conftest import make_speckle
@@ -249,20 +251,41 @@ def test_resume_matches_fresh_and_computes_nothing(tmp_path, monkeypatch):
     _assert_equal(resumed, fresh)
 
 
-def test_partial_resume_after_lost_chunks(tmp_path, monkeypatch):
+@pytest.mark.parametrize("mesh, tracked", [(None, 2), (("cpu", "cpu"), 4)])
+def test_partial_resume_after_lost_chunks(tmp_path, monkeypatch, mesh, tracked):
     """Lost chunks are recomputed, the incremental reference after a loaded
-    chunk re-derived from the stack: the result equals a fresh run."""
+    chunk re-derived from the stack: the result equals a fresh run. Under a
+    two-entry mesh each run chunk tracks two one-frame shards."""
     stack = _ckpt_stack()
-    fresh = tm.speckle_stack_stats(stack, device="cpu", **_CKPT_KW)
-    tm.speckle_stack_stats(stack, checkpoint_dir=tmp_path, device="cpu", **_CKPT_KW)
+    kw = dict(_CKPT_KW, device="cpu", mesh=None if mesh is None else frame_mesh(list(mesh)))
+    fresh = tm.speckle_stack_stats(stack, **kw)
+    tm.speckle_stack_stats(stack, checkpoint_dir=tmp_path, **kw)
     files = sorted(tmp_path.glob("*.npz"))
     files[0].unlink()
     files[-1].unlink()
     calls = _count_tracking(monkeypatch)
-    resumed = tm.speckle_stack_stats(stack, checkpoint_dir=tmp_path, device="cpu", **_CKPT_KW)
-    assert len(calls) == 2
+    resumed = tm.speckle_stack_stats(stack, checkpoint_dir=tmp_path, **kw)
+    assert len(calls) == tracked
     _assert_equal(resumed, fresh)
     assert len(sorted(tmp_path.glob("*.npz"))) == len(files)
+
+
+def test_speckle_chunk_file_keeps_its_format(tmp_path):
+    """A chunk file holds the metric leaves under ``metrics`` and the four
+    trajectories by name, (n, 9) in the frames' dtype: chunks written by
+    earlier versions of the port resume."""
+    stack = _ckpt_stack()
+    tm.speckle_stack_stats(stack, checkpoint_dir=tmp_path, device="cpu", **_CKPT_KW)
+    files = sorted(tmp_path.glob("torch_speckle_fused_*.npz"))
+    assert len(files) == 3
+    with np.load(files[0]) as data:
+        assert str(data["__chunkstore_kind__"]) == "dict"
+        keys = set(data.files) - {"__chunkstore_kind__"}
+        tracks = {f"track||{k}" for k in ("dy_a", "dx_a", "dy_i", "dx_i")}
+        assert tracks <= keys
+        assert keys - tracks and all(k.startswith("metrics||") for k in keys - tracks)
+        for k in tracks:
+            assert data[k].shape == (2, 9) and data[k].dtype == np.float64, k
 
 
 def test_resume_ignores_stale_config(tmp_path):

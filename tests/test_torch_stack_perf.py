@@ -11,7 +11,9 @@
   run stay exactly those of the host run;
 - ``device_compute_probe`` times the loop's own step over a resident
   stack: its frame count follows the JAX package's rule, and it raises on
-  non-finite tracking and where no device is given and no card exists.
+  non-finite tracking and where no device is given and no card exists;
+- every stack path runs through ``metrics.common``'s one chunk loop, once a
+  call.
 """
 import numpy as np
 import pytest
@@ -20,9 +22,9 @@ import torch
 import barc4dip_tpu.metrics as jm
 import barc4dip_tpu_torch.metrics as tm
 from barc4dip_tpu.metrics import stack_fused as j_fused
-from barc4dip_tpu_torch import parallel
+from barc4dip_tpu_torch import models, parallel, signal
 from barc4dip_tpu_torch.geometry.roi import roi_grid_3x3
-from barc4dip_tpu_torch.metrics import stack_fused
+from barc4dip_tpu_torch.metrics import common, stack_fused
 from barc4dip_tpu_torch.metrics.common import chunk_layout_signature
 from tests.conftest import make_speckle
 
@@ -201,3 +203,28 @@ def test_probe_needs_a_device_or_a_card(spiral_stack, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         stack_fused.device_compute_probe(spiral_stack, _grid(spiral_stack.shape[1:]), **PROBE)
+
+
+#: entry -> a call of it on a host stack
+STACK_PATHS = {
+    "speckle_stack_stats": lambda st: tm.speckle_stack_stats(st, device="cpu", **KW),
+    "sharpness_stack_stats": lambda st: tm.sharpness_stack_stats(
+        st, metrics="gradient,spectral", tiles=False, verbose=False, frame_chunk=2, device="cpu"),
+    "spectral_summary_stack": lambda st: signal.spectral_summary_stack(st, frame_chunk=2, device="cpu"),
+    "visibility_map": lambda st: tm.visibility_map(st, window=8, stride=4, frame_chunk=2, device="cpu"),
+    "SharpnessScanPipeline": lambda st: models.SharpnessScanPipeline(frame_chunk=2, device="cpu")(st),
+}
+
+
+@pytest.mark.parametrize("path", sorted(STACK_PATHS))
+def test_every_stack_path_runs_the_one_chunk_loop_once(spiral_stack, path, monkeypatch):
+    calls = []
+    real = common.run_chunks
+
+    def counted(stack, step, **kw):
+        calls.append(int(stack.shape[0]))
+        return real(stack, step, **kw)
+
+    monkeypatch.setattr(common, "run_chunks", counted)
+    STACK_PATHS[path](spiral_stack)
+    assert calls == [spiral_stack.shape[0]]

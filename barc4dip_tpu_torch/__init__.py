@@ -20,7 +20,9 @@ tracking, kernel K3 in ``ops/cuda_densetrack.py`` +
 ``csrc/densetrack_sums.cu``), ``maths`` and ``models``; and the sharpness
 API (``sharpness_stats``, ``sharpness_stack_stats``, the five standalone
 estimators, ``models.SharpnessScanPipeline``), whose autocorrelation group
-runs kernel K1a, with ``report.logbook_report``; and the way in and out:
+runs kernel K1a and whose eigenvalue group's dense solves run kernel K4
+(``ops/cuda_symeig.py`` + ``csrc/symeig_tridiag.cu``), with
+``report.logbook_report``; and the way in and out:
 ``io`` (``read_image`` / ``write_image``, the EDF, TIFF and HDF5 readers and
 writers, the native C++ codec of ``native/dipio.cpp``), the pipelines'
 ``run_files`` / ``run_edf_files`` / ``run_hdf5``, the console scripts

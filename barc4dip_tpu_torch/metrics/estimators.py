@@ -12,6 +12,7 @@ import torch
 
 from ..config import device_cache
 from ..geometry.masks import square_embed_slices
+from ..ops import cuda_symeig
 from ..ops.corrcore import autocorr2d_core
 from ..ops.eig import topk_eigvalsh_subspace
 from ..ops.fftcore import psd2d_core
@@ -285,7 +286,9 @@ def eigenvalues_core(img, *, k: int = 5, eps: float = 1e-30, eig_method: str = "
     two largest (e1, e2) and e1/(e2+eps).
 
     ``eig_method``: "auto" (subspace iteration from 1024 px, dense below),
-    "dense" (always ``eigvalsh``) or "subspace" (always iterative; see
+    "dense" (always the whole spectrum: :func:`..ops.cuda_symeig.eigvalsh`,
+    kernel K4 for CUDA float32 up to 238 px, ``torch.linalg.eigvalsh``
+    otherwise) or "subspace" (always iterative; see
     :func:`..ops.eig.topk_eigvalsh_subspace` for its accuracy on flat
     spectra). The Gram product is a plain matmul in the image's dtype (TF32
     is off, :mod:`..config`)."""
@@ -306,7 +309,7 @@ def eigenvalues_core(img, *, k: int = 5, eps: float = 1e-30, eig_method: str = "
     if eig_method == "subspace" or (eig_method == "auto" and n_eig >= 1024 and k_want <= 32):
         ev = topk_eigvalsh_subspace(G, k_want)
     else:
-        ev = torch.linalg.eigvalsh(G).flip(-1)[..., :k_want]
+        ev = cuda_symeig.eigvalsh(G).flip(-1)[..., :k_want]
     ev = (ev / float(M * N - 1)).clamp(min=0.0)
 
     val = ev[..., :k_use].sum(-1)

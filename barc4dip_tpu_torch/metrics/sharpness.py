@@ -265,8 +265,10 @@ def eigenvalues(
 ) -> dict:
     """(STA2) Sum of the top-k covariance eigenvalues (plus e1, e2, e1/e2).
 
-    ``eig_method``: "auto" (default; subspace iteration from 1024 px),
-    "dense" (always-exact eigvalsh) or "subspace"; see
+    ``eig_method``: "auto" (default; subspace iteration from 1024 px,
+    dense below), "dense" (always the exact whole spectrum: kernel K4 on a
+    CUDA float32 image up to 238 px, ``torch.linalg.eigvalsh`` otherwise) or
+    "subspace"; see
     :func:`..ops.eig.topk_eigvalsh_subspace` for the accuracy trade-off on
     flat (noise-only) spectra."""
     data = _as_data(image)

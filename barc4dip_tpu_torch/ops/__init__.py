@@ -3,8 +3,8 @@
 the device of its input (counterpart of ``barc4dip_tpu/ops``).
 
 The hand-written kernels' wrappers stay submodules and are not re-exported:
-``cuda_fftp`` (K1), ``cuda_median`` (K2), ``cuda_densetrack`` (K3), all
-built by ``_nvcc``.
+``cuda_fftp`` (K1), ``cuda_median`` (K2), ``cuda_densetrack`` (K3),
+``cuda_symeig`` (K4), all built by ``_nvcc``.
 """
 from .corrcore import autocorr2d_core, xcorr1d_core, xcorr2d_core
 from .fftcore import (

@@ -9,9 +9,10 @@ Phases, one line each with its wall time:
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles kernels K1 (``csrc/fftp_corr.cu``), K2
-   (``csrc/median3x3.cu``) and K3 (``csrc/densetrack_sums.cu``) of
-   ``barc4dip_tpu_torch`` from this checkout into ``build/kernels/``, one
-   ``nvcc`` per source, all started together; prints their ptxas lines;
+   (``csrc/median3x3.cu``), K3 (``csrc/densetrack_sums.cu``) and K4
+   (``csrc/symeig_tridiag.cu``) of ``barc4dip_tpu_torch`` from this
+   checkout into ``build/kernels/``, one ``nvcc`` per source, all started
+   together; prints their ptxas lines;
 3. kernels: each K1 wrapper against its plain PyTorch version on the card,
    at the main paths' shapes (2048^2 frames, 29-px templates; K1a on 1 and
    4 mean-removed frames as the speckle path sends them and on 8 as
@@ -31,7 +32,13 @@ Phases, one line each with its wall time:
    and the time per call of 10 calls queued back to back (host enqueue
    overlapped); each K1 row prints its device time by pass and pass 1's
    effective rate (the spectra read once plus the mid plane written once,
-   over its time);
+   over its time); then K4 on the sharpness path's subtile Gram matrices
+   (228^2, eigenvalues_core's normalisation, from frames 0-1) at B = 25,
+   the largest bucket a 2048^2 frame gives, and B = 81, its subtiles'
+   count: against its plain version on the card and float64 eigvalsh
+   within 2e-6 of the spectral radius, timed as K1 is beside one
+   ``torch.linalg.eigvalsh`` call (events only: the library's thousands of
+   launches a call are not profiled);
 4. slice: ``speckle_stack_stats`` at the JAX package's defaults (lazy
    grain maps on) on a 16 x 2048^2 uint16 spiral stack (Config D), run
    twice; the second run is counted and timed. Checks the K1 launch counts
@@ -266,6 +273,8 @@ GOLDEN_K = 2
 RTOL = 1e-4
 TRACK_GATE_PX = 0.05
 KERNEL_ATOL_REL = 2e-5
+K4_ATOL_REL = 2e-6  # float32 tridiagonalisation against float64 eigvalsh (tests/test_torch_symeig.py)
+K4_SIDE = 228  # the subtiles of a 2048^2 frame: 228 or 227 px a side
 REPEATS = 10
 # the XST slice (Config F geometry; the flat-field half of Config E)
 XST_T, XST_SEED, XST_GRAIN_PX, XST_MEAN_COUNTS = 6, 4321, 3.0, 2000.0
@@ -722,6 +731,52 @@ def check_kernels(torch, dev, stack, starts, s, card: str) -> list[dict]:
     return rows
 
 
+def check_kernels_symeig(torch, dev, stack, card: str) -> list[dict]:
+    """K4 on 25 and 81 subtile Gram matrices of 228^2 (see the module
+    docstring, phase 3)."""
+    from barc4dip_tpu_torch.ops import cuda_symeig
+
+    rows = []
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
+    M = K4_SIDE
+    frames = torch.from_numpy(stack[:2].astype(np.float32)).to(dev)
+    tiles = frames[:, :8 * M, :8 * M].reshape(2, 8, M, 8, M).permute(0, 1, 3, 2, 4).reshape(128, M, M)
+    x = tiles / torch.sqrt((tiles * tiles).sum(dim=(-2, -1)))[..., None, None]
+    J = x - x.mean(dim=(-2, -1), keepdim=True)
+    grams = J @ J.mT
+    for B in (25, 81):
+        G = grams[:B].contiguous()
+        cuda_symeig.reset_counts()
+        got = cuda_symeig.symeig_tridiag(G)
+        plain = cuda_symeig.symeig_tridiag_plain(G)
+        want = torch.linalg.eigvalsh(G.double())
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err, err64 = float((got - plain).abs().max()), float((got.double() - want).abs().max())
+        if cuda_symeig.LAUNCHES != {"symeig": 1} or not (err <= K4_ATOL_REL * scale and err64 <= K4_ATOL_REL * scale):
+            raise AssertionError(f"K4 B={B}: launches {cuda_symeig.LAUNCHES}, max|kernel-plain| {err:.3e}, "
+                                 f"max|kernel-float64| {err64:.3e} against {K4_ATOL_REL:g}*{scale:.3e}")
+        top = ", ".join(
+            f"{name} {float(((got[:, sl].double().sum(-1) - want[:, sl].sum(-1)) / want[:, sl].sum(-1)).abs().max()):.2e}"
+            for name, sl in (("top-5 sum", slice(-5, None)), ("e1", slice(-1, None)), ("e2", slice(-2, -1))))
+        ms = time_ms(torch, lambda: cuda_symeig.symeig_tridiag(G))
+        plain_ms = time_ms(torch, lambda: cuda_symeig.symeig_tridiag_plain(G))
+        library_ms = time_ms(torch, lambda: torch.linalg.eigvalsh(G))
+        log(f"K4 symeig_tridiag {B} x {M}^2: max|kernel-plain| {err:.3e}, max|kernel-float64| {err64:.3e} "
+            f"({err64 / scale:.2e} of the spectral radius; relative vs float64: {top}); kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, library eigvalsh {library_ms:.3f} ms; {card}")
+        device_ms = log_device_split(torch, "kernel", lambda: cuda_symeig.symeig_tridiag(G))
+        # the tridiagonalisation's (4/3) M^3 operations a matrix; the bytes:
+        # each matrix read once, its eigenvalues written once
+        rows.append({"name": f"symeig_tridiag B={B} M={M}", "route": "cuda",
+                     "source": "barc4dip_tpu_torch/csrc/symeig_tridiag.cu",
+                     "replaces": "none: torch.linalg.eigvalsh (XLA's eigh in the JAX package)",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                     **bound(nbytes(G, got), 4.0 / 3.0 * M ** 3 * B), "library_ms": library_ms})
+    log(f"card state (SM clock, max SM clock, power, temperature): {card_state()}")
+    return rows
+
+
 def run_slice(torch, dev, stack, card: str) -> dict:
     import barc4dip_tpu_torch as port
     from barc4dip_tpu_torch.ops import cuda_fftp
@@ -1170,7 +1225,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
 
     import barc4dip_tpu_torch as port
     from barc4dip_tpu_torch.models import SharpnessScanPipeline
-    from barc4dip_tpu_torch.ops import cuda_fftp
+    from barc4dip_tpu_torch.ops import cuda_fftp, cuda_symeig
 
     frame = stack[0]
     H, W = frame.shape
@@ -1181,14 +1236,20 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
     kw = dict(metrics="all", tiles=True, verbose=False, device=dev)
     port.sharpness_stats(frame, **kw)
     cuda_fftp.reset_counts()
+    cuda_symeig.reset_counts()
     t0 = time.perf_counter()
     out = port.sharpness_stats(frame, **kw)  # returns host floats: synchronised
     ms = (time.perf_counter() - t0) * 1e3
     launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    k4, library = cuda_symeig.LAUNCHES["symeig"], dict(cuda_symeig.LIBRARY_BY_SHAPE)
     log(f"sharpness_stats {frame.shape} {frame.dtype}, six groups, 9x9 subtiles: {ms:.2f} ms (counted "
-        f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
+        f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; K4 launches {k4} "
+        f"(one a subtile bucket), library eigvalsh by shape {json.dumps(library)}; {card}")
     if launches != one_k1a:
         raise AssertionError(f"sharpness_stats launched K1 {launches}: one K1a wanted")
+    if k4 != 4 or library:
+        raise AssertionError(f"sharpness_stats: K4 launches {k4}, library {library}: four K4, no library")
+    res["k4_launches"] = k4
     if not set(plain) <= subtile_plain_keys(H, W):
         raise AssertionError(f"unexpected plain-path shapes {sorted(plain)}")
     if sorted(out["full"]) != sorted(port.metrics.sharpness._ALL_SHARPNESS_GROUPS) or \
@@ -2996,9 +3057,9 @@ def main() -> int:
     with Phase("build"):
         from concurrent.futures import ThreadPoolExecutor
 
-        from barc4dip_tpu_torch.ops import _nvcc, cuda_densetrack, cuda_fftp, cuda_median
+        from barc4dip_tpu_torch.ops import _nvcc, cuda_densetrack, cuda_fftp, cuda_median, cuda_symeig
 
-        builds = (cuda_fftp.build, cuda_median.build, cuda_densetrack.build)
+        builds = (cuda_fftp.build, cuda_median.build, cuda_densetrack.build, cuda_symeig.build)
         with ThreadPoolExecutor(len(builds)) as pool:
             for fut in [pool.submit(b) for b in builds]:
                 fut.result()
@@ -3024,6 +3085,7 @@ def main() -> int:
     with Phase("kernels"):
         rows = check_kernels(torch, dev, stack, starts, s, card)
         rows += check_kernels_sides(torch, dev, stack, cov, big, card)
+        rows += check_kernels_symeig(torch, dev, stack, card)
 
     with Phase("slice"):
         res = run_slice(torch, dev, stack, card)
@@ -3110,6 +3172,9 @@ def main() -> int:
         elif row["name"].startswith("ncc_sums"):
             row["launches"] = xst["launches"]["ncc_sums"]
             row["launches_files"] = files_xst["launches"]["ncc_sums"]
+        elif row["name"].startswith("symeig_tridiag"):
+            row["path"] = "sharpness_stats"
+            row["launches"] = sharp["k4_launches"]
         elif row.get("path") in coverage:  # a side of the coverage phase only
             key = "rows" if row["name"].startswith("corr_from_rfft") else "rows_ncc"
             row["launches"] = coverage[row["path"]][key]

@@ -1,6 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
-"""Kernels K1, K2 and K3 on the card against their plain PyTorch versions
-(the comparisons of chip_smoke.py's kernel phases, as test cases). Marked
+"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch
+versions (the comparisons of chip_smoke.py's kernel phases, as test cases),
+K4 also against float64 ``torch.linalg.eigvalsh`` on the card. Marked
 ``cuda``: they skip where no card is present. On the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_fftp, cuda_median, densetrack, ncc
+from barc4dip_tpu_torch.ops import cuda_densetrack, cuda_fftp, cuda_median, cuda_symeig, densetrack, ncc
 from barc4dip_tpu_torch.ops.phasecorr import argmax2d
 from barc4dip_tpu_torch.utils import speckle_stack
 
@@ -524,7 +525,7 @@ def test_gram_product_is_not_tf32(dev, side):
 
 @pytest.mark.parametrize("side, method", [(227, "dense"), (1024, "subspace"), (2048, "auto")])
 def test_eigenvalues_float32_against_float64(dev, side, method):
-    """Batched dense (cuSOLVER) and subspace eigenvalues in float32 against
+    """Batched dense (kernel K4) and subspace eigenvalues in float32 against
     a float64 dense solve on the card: rtol 1e-4, the metric value gate."""
     from barc4dip_tpu_torch.metrics import estimators
 
@@ -536,7 +537,121 @@ def test_eigenvalues_float32_against_float64(dev, side, method):
         assert float(rel) <= 1e-4, key
 
 
-@pytest.mark.parametrize("kernel", ["K1a", "K1b", "K2", "K3"])
+# -- kernel K4: the dense eigenvalue route -----------------------------------------
+
+# float32 tridiagonalisation: within this share of the spectral radius of
+# float64 eigvalsh (as tests/test_torch_symeig.py holds the plain version)
+K4_ATOL_REL = 2e-6
+
+
+def _k4_symmetric(B, M, seed):
+    X = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, M, M)).astype(np.float32))
+    return torch.tril(X) + torch.tril(X, -1).mT
+
+
+def _k4_gram(img):
+    """``eigenvalues_core``'s Gram matrix of each image."""
+    x = img / torch.sqrt((img * img).sum(dim=(-2, -1)))[..., None, None]
+    J = x - x.mean(dim=(-2, -1), keepdim=True)
+    return J @ J.mT
+
+
+def _k4_case(dev, case):
+    if case.startswith("random-"):
+        M = int(case.split("-")[1])
+        return _k4_symmetric(2, M, seed=M).to(dev)
+    if case.startswith("subtile-"):  # 25 subtiles of one 2048^2 frame, a bucket's shape
+        rows, cols = map(int, case.split("-")[1].split("x"))
+        frame = _frames(dev, 1, 2048)[0]
+        tiles = frame[:5 * rows, :5 * cols].reshape(5, rows, 5, cols).permute(0, 2, 1, 3)
+        return _k4_gram(tiles.reshape(25, rows, cols).contiguous())
+    if case == "zeros":
+        return torch.zeros(3, 228, 228, device=dev)
+    if case == "rank1":
+        u = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 228)).astype(np.float32)).to(dev)
+        return u[:, :, None] * u[:, None, :]
+    if case == "repeated":
+        Q, _ = torch.linalg.qr(torch.from_numpy(np.random.default_rng(2).normal(size=(228, 228))))
+        lam = torch.tensor([1.0] * 80 + [2.0] * 100 + [-3.0] * 48, dtype=torch.float64)
+        return ((Q * lam) @ Q.T).float()[None].to(dev)
+    if case == "identity":
+        return 3.5 * torch.eye(228, device=dev)[None].repeat(2, 1, 1)
+    if case == "batch81":
+        return _k4_symmetric(81, 228, seed=81).to(dev)
+    raise ValueError(case)
+
+
+K4_CASES = ["random-1", "random-2", "random-3", "random-32", "random-227", "random-228", "random-238",
+            "subtile-228x228", "subtile-228x227", "subtile-227x228", "subtile-227x227",
+            "zeros", "rank1", "repeated", "identity", "batch81"]
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_symeig_matches_float64_eigvalsh(dev, case):
+    """K4, one launch, against float64 ``eigvalsh`` on the card and against
+    its plain version: within 2e-6 of the spectral radius, ascending;
+    zeros exactly (a bad subtile is solved on zeros)."""
+    G = _k4_case(dev, case)
+    cuda_symeig.reset_counts()
+    got = cuda_symeig.eigvalsh(G)
+    torch.cuda.synchronize()
+    assert cuda_symeig.LAUNCHES == {"symeig": 1} and cuda_symeig.LIBRARY_BY_SHAPE == {}
+    want = torch.linalg.eigvalsh(G.double())
+    scale = float(want.abs().max())
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.device == G.device
+    assert float((got.double() - want).abs().max()) <= K4_ATOL_REL * scale
+    assert bool((got[..., 1:] >= got[..., :-1]).all())
+    if case == "zeros":
+        assert torch.equal(got.abs(), torch.zeros_like(got))
+    if case != "batch81":  # the plain version's Python steps: 81 x 228^2 is slow
+        plain = cuda_symeig.symeig_tridiag_plain(G)
+        assert float((got - plain).abs().max()) <= K4_ATOL_REL * scale
+
+
+@pytest.mark.parametrize("rows, cols", [(228, 228), (228, 227), (227, 228), (227, 227)])
+def test_symeig_subtile_buckets_against_float64(dev, rows, cols):
+    """The eigenvalue group on a bucket of 25 subtiles through K4 against a
+    float64 dense solve on the card: rtol 1e-4, the metric value gate."""
+    from barc4dip_tpu_torch.metrics import estimators
+
+    frame = _frames(dev, 1, 2048)[0]
+    tiles = frame[:5 * rows, :5 * cols].reshape(5, rows, 5, cols).permute(0, 2, 1, 3)
+    tiles = tiles.reshape(25, rows, cols).contiguous()
+    cuda_symeig.reset_counts()
+    got = estimators.eigenvalues_core(tiles)
+    assert cuda_symeig.LAUNCHES == {"symeig": 1} and cuda_symeig.LIBRARY_BY_SHAPE == {}
+    want = estimators.eigenvalues_core(tiles.double())
+    for key in ("eigenvalues", "e1", "e2", "re"):
+        rel = ((got[key].double() - want[key]).abs() / want[key].abs()).max()
+        assert float(rel) <= 1e-4, key
+
+
+def test_sharpness_stats_launches_k4_once_a_bucket(dev):
+    """A 2048^2 frame's ``metrics="all"`` call with 9x9 subtiles: four
+    buckets (227/228 px a side), one K4 launch each; the frame's own
+    eigenvalues take the subspace route; nothing goes to the library."""
+    from barc4dip_tpu_torch.metrics import sharpness_stats
+
+    frame = _frames(dev, 1, 2048)[0]
+    cuda_symeig.reset_counts()
+    out = sharpness_stats(frame, metrics="all", tiles=True, verbose=False)
+    assert cuda_symeig.LAUNCHES == {"symeig": 4} and cuda_symeig.LIBRARY_BY_SHAPE == {}
+    assert np.isfinite(np.asarray(out["tiles"]["eigenvalues"]["e1"]["mean"])).all()
+
+
+def test_symeig_library_calls_are_counted(dev):
+    """A CUDA batch K4 does not take (M above its limit, float64) goes to
+    ``torch.linalg.eigvalsh``, counted by shape and dtype."""
+    G = _k4_symmetric(2, cuda_symeig.MAX_M + 1, seed=3).to(dev)
+    cuda_symeig.reset_counts()
+    got = cuda_symeig.eigvalsh(G)
+    cuda_symeig.eigvalsh(G[:, :20, :20].double())
+    assert cuda_symeig.LAUNCHES == {"symeig": 0}
+    assert cuda_symeig.LIBRARY_BY_SHAPE == {"eigvalsh:2x239x239:float32": 1, "eigvalsh:2x20x20:float64": 1}
+    assert torch.equal(got, torch.linalg.eigvalsh(G))
+
+
+@pytest.mark.parametrize("kernel", ["K1a", "K1b", "K2", "K3", "K4"])
 def test_launch_leaves_the_current_device(dev, kernel):
     """Each binding switches the CUDA runtime to its tensor's device; the
     wrapper's guard puts the caller's current device back. With two cards
@@ -557,6 +672,8 @@ def test_launch_leaves_the_current_device(dev, kernel):
                                            valid_hw=(200, 200), s=(256, 256))
         elif kernel == "K2":
             cuda_median.median3x3(x)
+        elif kernel == "K4":
+            cuda_symeig.symeig_tridiag(_k4_gram(x[:, :64, :64]).contiguous())
         else:
             cuda_densetrack.ncc_sums(x[0], x[1:], (20, 60), (20, 60), 17, 4)
         assert torch.cuda.current_device() == before

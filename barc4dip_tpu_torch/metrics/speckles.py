@@ -22,10 +22,12 @@ import torch
 from ..config import MIN_TILE_PX, device_array, to_compute
 from ..geometry.masks import square_embed_slices
 from ..geometry.roi import odd_size, roi_grid_3x3
+from ..ops import cuda_fftp
 from ..signal.common import lag_axis_from_step
 from ..utils.checkpoint import ChunkStore
 from ..utils.lazy import LazyMap, LazyMapStack
 from ..utils.profiling import annotate
+from . import stack_fused
 from .common import (
     apply_display_origin,
     choose_tiling_mode,
@@ -476,9 +478,12 @@ def speckle_stack_stats(
     flip = display_origin == "lower"
 
     mode, _tile_shape = choose_tiling_mode(H, W, tiles=tiles, min_tile_px=MIN_TILE_PX)
+    clusters = cuda_fftp.LAUNCHES["cols_cluster"]
+    t_frame0 = time.perf_counter()
     grid_slices, grid_labels, roi_side, step, grain0 = tracking_grid_from_frame0(
         stack, roi_grain_factor=roi_grain_factor, roi_step_factor=roi_step_factor
     )
+    frame0_s = time.perf_counter() - t_frame0
     ckpt = None
     if checkpoint_dir is not None:
         config = {
@@ -508,6 +513,9 @@ def speckle_stack_stats(
         mesh=mesh,
         checkpoint=ckpt,
         device=device,
+    )
+    stack_fused.LAST_RUN_PERF.update(
+        frame0_s=frame0_s, k1_cluster_launches=cuda_fftp.LAUNCHES["cols_cluster"] - clusters
     )
     with annotate("entry.assemble"):
         out_full, out_tiles = _assemble_stack_output(raw_metrics, mode)

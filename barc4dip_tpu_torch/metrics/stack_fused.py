@@ -51,7 +51,10 @@ __all__ = ["LAST_RUN_PERF", "device_compute_probe", "run_fused_speckle_stack"]
 #: over the run): ``graph_replays`` (shards replayed as CUDA graphs),
 #: ``graph_captures`` (keys captured, in a shard that is also replayed) and
 #: ``eager_steps`` (shards run eagerly: every shard off a card, and on a
-#: card a key's first shard in the process).
+#: card a key's first shard in the process). ``speckle_stack_stats`` adds
+#: ``frame0_s`` (host-clock seconds of ``tracking_grid_from_frame0``) and
+#: ``k1_cluster_launches`` (the call's K1 pass-1 launches on the cluster
+#: route, ``cuda_fftp.LAUNCHES["cols_cluster"]``).
 LAST_RUN_PERF: dict = {}
 
 

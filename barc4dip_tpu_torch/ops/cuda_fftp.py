@@ -46,7 +46,9 @@ exactly what ``pallas_fftp.supported`` accepts):
   odd-sided windows, any side that is not a multiple of 128, and spectra
   that are not complex64.
 
-:data:`LAUNCHES` counts every kernel launch, by pass.
+:data:`LAUNCHES` counts every kernel launch, by pass; pass 1's cluster
+route runs inside :func:`_cols_cluster`, in the span ``k1.cluster``, and
+is counted again under ``cols_cluster``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import _nvcc
 from .phasecorr import argmax2d
 
@@ -82,8 +85,9 @@ __all__ = [
 #: pass 1 above this many rows runs on thread-block clusters
 #: (``corr_cols_cluster`` in the source) of :func:`cluster_ranks` blocks
 CLUSTER_ABOVE = 2048
-#: kernel launches by pass: pass 1 (columns), pass 2, pass 2 with the NCC epilogue
-LAUNCHES: dict[str, int] = {"cols": 0, "rows": 0, "rows_ncc": 0}
+#: kernel launches by pass: pass 1 (columns), pass 2, pass 2 with the NCC
+#: epilogue; and pass 1's launches on the cluster route, counted in "cols" too
+LAUNCHES: dict[str, int] = {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}
 #: CUDA calls that took the plain version because the kernel does not cover
 #: their shape or dtype, keyed "corr|ncc:HxW:dtype"
 PLAIN_BY_SHAPE: dict[str, int] = {}
@@ -259,6 +263,24 @@ def _use_kernel(F, s, kind: str) -> bool:
 
 
 def _cols(lib, F3, G, NF, K, shared, H, W):
+    """Pass 1: the (NF*K, H, W/2) complex64 mid planes; above
+    ``CLUSTER_ABOVE`` rows through :func:`_cols_cluster`."""
+    if H > CLUSTER_ABOVE:
+        return _cols_cluster(lib, F3, G, NF, K, shared, H, W)
+    return _cols_launch(lib, F3, G, NF, K, shared, H, W)
+
+
+def _cols_cluster(lib, F3, G, NF, K, shared, H, W):
+    """Pass 1 on thread-block clusters (``corr_cols_cluster``, which the
+    binding picks from H): the binding call of every pass-1 launch, in the
+    span ``k1.cluster`` and counted under ``cols_cluster`` too."""
+    with annotate("k1.cluster"):
+        mid = _cols_launch(lib, F3, G, NF, K, shared, H, W)
+    LAUNCHES["cols_cluster"] += 1
+    return mid
+
+
+def _cols_launch(lib, F3, G, NF, K, shared, H, W):
     Wh = W // 2 + 1
     NB = NF * K
     _nvcc.check_tensor(F3, "K1", "F", torch.complex64, (NF, H, Wh))

@@ -793,7 +793,7 @@ def run_slice(torch, dev, stack, card: str) -> dict:
     out = port.speckle_stack_stats(stack, **kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = dict(cuda_fftp.LAUNCHES)
+    launches = k1_launches(cuda_fftp)
     plain = dict(cuda_fftp.PLAIN_BY_SHAPE)
     log(f"K1 launches in the counted run: {json.dumps(launches)}; "
         f"plain by shape: {json.dumps(plain)}")
@@ -841,7 +841,7 @@ def run_slice(torch, dev, stack, card: str) -> dict:
     # the lazy maps of frames 0..GOLDEN_K-1, read by index: one K1a each
     cuda_fftp.reset_counts()
     maps = [out["full"]["grain"]["autocorr"][t] for t in range(GOLDEN_K)]
-    map_launches = dict(cuda_fftp.LAUNCHES)
+    map_launches = k1_launches(cuda_fftp)
     log(f"K1 launches reading the maps of frames 0-{GOLDEN_K - 1}: {json.dumps(map_launches)}")
     if map_launches != {"cols": GOLDEN_K, "rows": GOLDEN_K, "rows_ncc": 0}:
         raise AssertionError(f"reading {GOLDEN_K} maps launched K1 {map_launches}")
@@ -915,7 +915,7 @@ def run_speckle_stats(torch, dev, stack, card: str) -> dict:
     t0 = time.perf_counter()
     out = port.speckle_stats(frame, **kw)  # returns host floats: synchronised
     ms = (time.perf_counter() - t0) * 1e3
-    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
     log(f"speckle_stats {frame.shape} {frame.dtype}, all groups, 9x9 subtiles: {ms:.2f} ms (counted "
         f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; {card}")
     if launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
@@ -925,7 +925,7 @@ def run_speckle_stats(torch, dev, stack, card: str) -> dict:
 
     cuda_fftp.reset_counts()
     amap = np.asarray(out["full"]["grain"]["autocorr"])
-    map_launches = dict(cuda_fftp.LAUNCHES)
+    map_launches = k1_launches(cuda_fftp)
     if map_launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
         raise AssertionError(f"reading the map launched K1 {map_launches}: one K1a wanted")
     ref = port.speckle_stats(frame.astype(np.float64), **kw)
@@ -990,7 +990,7 @@ def run_resident(torch, dev, stack, host_out: dict, card: str) -> dict:
     out = port.speckle_stack_stats(st, **kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
     T, H, W = stack.shape
     log(f"resident stack ({T} x {H}x{W} {st.dtype} on the card): counted run {warm_s:.3f} s = "
         f"{T * H * W / 1e6 / warm_s:.2f} MP/s end to end; K1 launches {json.dumps(launches)}; {card}")
@@ -1047,7 +1047,7 @@ def run_probe(torch, dev, stack, resident_s: float, card: str) -> None:
         log(f"probe ({label}) starts: card state {card_state()}")
         cuda_fftp.reset_counts()
         probe = device_compute_probe(st, grid, device=dev, **kw)
-        launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
         log(f"probe ({label}, {T} x {H}x{W} {stack.dtype}, mode {mode}): elapsed_s {probe['elapsed_s']:.4f}, "
             f"metrics_only_s {probe['metrics_only_s']:.4f}, tracking_only_s {probe['tracking_only_s']:.4f}, "
             f"frames {probe['frames']}, mpix_s {probe['mpix_s']:.2f}; {probe['mpix_s'] / resident_mpix:.3f}x "
@@ -1100,7 +1100,7 @@ def run_options(torch, dev, stack, card: str) -> dict:
         t0 = time.perf_counter()
         out = port.speckle_stack_stats(sub, **kw, **extra)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        return out, time.perf_counter() - t0, k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
 
     full, full_s, _, _ = counted()
     win, win_s, launches, plain = counted(tracking_search_radius=OPT_RADIUS)
@@ -1138,7 +1138,7 @@ def run_options(torch, dev, stack, card: str) -> dict:
         n_files = len(list(Path(tmp).glob("*.npz")))
         cuda_fftp.reset_counts()
         second = port.speckle_stack_stats(sub, **ck)
-        launches = dict(cuda_fftp.LAUNCHES)
+        launches = k1_launches(cuda_fftp)
     worst, d = max_leaf_diff(second, first)
     log(f"checkpoint: {n_files} chunk files; the resumed run launched K1 {json.dumps(launches)} and "
         f"differs from the first by {d:.3e} (worst {worst})")
@@ -1177,7 +1177,7 @@ def run_full_step(torch, dev, stack, starts, s: int, card: str) -> dict:
     cuda_fftp.reset_counts()
     out = step(*a32)
     torch.cuda.synchronize()
-    launches = dict(cuda_fftp.LAUNCHES)
+    launches = k1_launches(cuda_fftp)
     ms = time_ms(torch, lambda: step(*a32))
     ref = step(*args(np.float64))
     m_worst, m_err = None, -1.0
@@ -1240,7 +1240,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
     t0 = time.perf_counter()
     out = port.sharpness_stats(frame, **kw)  # returns host floats: synchronised
     ms = (time.perf_counter() - t0) * 1e3
-    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
     k4, library = cuda_symeig.LAUNCHES["symeig"], dict(cuda_symeig.LIBRARY_BY_SHAPE)
     log(f"sharpness_stats {frame.shape} {frame.dtype}, six groups, 9x9 subtiles: {ms:.2f} ms (counted "
         f"run); K1 launches {json.dumps(launches)}; plain by shape {json.dumps(plain)}; K4 launches {k4} "
@@ -1284,7 +1284,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
     t0 = time.perf_counter()
     report = port.logbook_report(port.sharpness_stats(frame, verbose=False, device=dev))
     a_ms = (time.perf_counter() - t0) * 1e3
-    res["config A"] = dict(cuda_fftp.LAUNCHES)
+    res["config A"] = k1_launches(cuda_fftp)
     log(f"Config A logbook_report(sharpness_stats(frame)): {a_ms:.2f} ms (counted run), report of "
         f"{len(report.splitlines())} lines; K1 launches {json.dumps(res['config A'])}; {card}")
     if res["config A"] != one_k1a or len(report.splitlines()) < 10 or "harpness" not in report:
@@ -1302,7 +1302,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
         t0 = time.perf_counter()
         got = port.sharpness_stack_stats(source, frame_chunk=chunk, **skw, **extra)
         torch.cuda.synchronize()
-        return got, time.perf_counter() - t0, dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        return got, time.perf_counter() - t0, k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
 
     def want_chunks(chunk):
         n = -(-SHARP_T // chunk)
@@ -1369,7 +1369,7 @@ def run_sharpness(torch, dev, stack, card: str) -> dict:
     t0 = time.perf_counter()
     focus = pipe(scan)
     scan_s = time.perf_counter() - t0
-    res["sharpness scan"] = dict(cuda_fftp.LAUNCHES)
+    res["sharpness scan"] = k1_launches(cuda_fftp)
     series = focus["full"]["gradient"]["tenengrad"]
     log(f"SharpnessScanPipeline (gradient,laplacian; focus gradient.tenengrad) on {scan.shape} "
         f"{scan.dtype}: {scan_s:.3f} s = {SCAN_T / scan_s:.2f} frames/s; best_frame "
@@ -1518,7 +1518,7 @@ def run_signal(torch, dev, stack, s: int, card: str) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         for k, v in cuda_fftp.PLAIN_BY_SHAPE.items():
             plain_seen[k] = plain_seen.get(k, 0) + v
-        return out, ms, dict(cuda_fftp.LAUNCHES)
+        return out, ms, k1_launches(cuda_fftp)
 
     def want(label, launches, expected):
         if launches != expected:
@@ -1839,6 +1839,12 @@ def _key_shape(key: str) -> tuple[int, int]:
     return int(h), int(w)
 
 
+def k1_launches(cuda_fftp) -> dict:
+    """K1's launches by pass (``cols``, ``rows``, ``rows_ncc``); the cluster
+    route's own count, ``cols_cluster``, only where a phase checks it."""
+    return {k: v for k, v in cuda_fftp.LAUNCHES.items() if k != "cols_cluster"}
+
+
 def refused_by_both(plain: dict) -> None:
     """Every plain-path key names a shape the TPU gate refuses too."""
     from barc4dip_tpu_torch.ops import cuda_fftp
@@ -1871,7 +1877,9 @@ def run_stack_cell(torch, dev, cst: np.ndarray, chunk: int, label: str, card: st
     log(f"{label}: speckle_stack_stats {cst.shape} {cst.dtype} (Config D settings, frame_chunk {chunk}): "
         f"counted run {secs:.3f} s = {T * H * W / 1e6 / secs:.2f} MP/s; K1 launches {json.dumps(launches)}; "
         f"plain by shape {json.dumps(plain)}; {card}")
-    want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks}
+    # pass 1 on clusters: K1a's above CLUSTER_ABOVE rows of the square frame, K1b's above them of the frame
+    clusters = int(max(H, W) > cuda_fftp.CLUSTER_ABOVE) + 2 * int(H > cuda_fftp.CLUSTER_ABOVE)
+    want = {"cols": 3 * chunks, "rows": chunks, "rows_ncc": 2 * chunks, "cols_cluster": clusters * chunks}
     if launches != want:
         raise AssertionError(f"{label}: K1 launches {launches} != {want}")
     refused_by_both(plain)
@@ -1909,7 +1917,7 @@ def run_coverage(torch, dev, cov: dict, card: str) -> dict:
         cuda_fftp.reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        got, seen = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        got, seen = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
         if got != one_k1a or seen:
             raise AssertionError(f"{label}: K1 launches {got}, plain by shape {seen}; one K1a and no plain call wanted")
         res[label] = got
@@ -2040,7 +2048,7 @@ def run_preprocess(torch, dev, stack, card: str) -> dict:
     def no_k1(label):
         """The call just timed reached no K1 (it reaches no Pallas kernel in
         the JAX package) and no plain correlation."""
-        got, seen = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+        got, seen = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
         if got != zero or seen:
             raise AssertionError(f"{label}: K1 launches {got}, plain by shape {seen}; none wanted")
         res["deconvolve_psf, clahe, correct_distortion, register_stack"] = got
@@ -2053,7 +2061,7 @@ def run_preprocess(torch, dev, stack, card: str) -> dict:
         return stats, port.logbook_report(stats)
 
     (stats, report), e_ms = timed(config_e)
-    launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+    launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
     res["config E"] = launches
     if launches != {"cols": 1, "rows": 1, "rows_ncc": 0}:
         raise AssertionError(f"Config E launched K1 {launches}: one K1a wanted")
@@ -2180,7 +2188,7 @@ def run_preprocess(torch, dev, stack, card: str) -> dict:
         rc = batch_cli.main([*paths, "--register", "first", "--frame-chunk", str(FRAME_CHUNK),
                              "--out", str(out_json), "--device", str(dev)])
         b_s = time.perf_counter() - t0
-        res["barc4dip-cuda-batch --register"] = dict(cuda_fftp.LAUNCHES)
+        res["barc4dip-cuda-batch --register"] = k1_launches(cuda_fftp)
         summary = json.loads(out_json.read_text()) if rc == 0 else {}
     reg = summary.get("registration", {})
     berr = float(np.hypot(reg.get("final_dy_px", np.inf) - truth[PRE_T - 1, 0],
@@ -2582,12 +2590,12 @@ def run_files(torch, dev, stack, scan, memory_s: float, have: dict, card: str) -
             torch.cuda.synchronize()
             with timer.stage("run_files"):
                 out = pipe.run_files(paths)
-            launches, plain = dict(cuda_fftp.LAUNCHES), dict(cuda_fftp.PLAIN_BY_SHAPE)
+            launches, plain = k1_launches(cuda_fftp), dict(cuda_fftp.PLAIN_BY_SHAPE)
             files_s, in_reads = timer.totals["run_files"], read_timer.totals["read"]
             reads_counted = list(reads)
             cuda_fftp.reset_counts()
             maps = [out["full"]["grain"]["autocorr"][t] for t in range(GOLDEN_K)]
-            map_launches = dict(cuda_fftp.LAUNCHES)
+            map_launches = k1_launches(cuda_fftp)
         finally:
             pio.read_edf = real_read
         log(f"Config D from EDF files (SpeckleStackPipeline(frame_chunk={FRAME_CHUNK}).run_files, Python "
@@ -2668,14 +2676,14 @@ def run_files(torch, dev, stack, scan, memory_s: float, have: dict, card: str) -
             mem = port.speckle_stack_stats(sub, **kw)
             cuda_fftp.reset_counts()
             mem = port.speckle_stack_stats(sub, **kw)
-            mem_launches = dict(cuda_fftp.LAUNCHES)
+            mem_launches = k1_launches(cuda_fftp)
             cuda_fftp.reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             h5 = pipe.run_hdf5(str(tmp / "run.h5"))
             torch.cuda.synchronize()
             h5_s = time.perf_counter() - t0
-            res["run_hdf5"] = dict(cuda_fftp.LAUNCHES)
+            res["run_hdf5"] = k1_launches(cuda_fftp)
             worst, d = max_leaf_diff(h5, mem)
             map_d = float(np.abs(h5["full"]["grain"]["autocorr"][1] - mem["full"]["grain"]["autocorr"][1]).max())
             log(f"HDF5: save_h5 of {sub.shape} {sub.dtype} in {save_s:.3f} s (gzip-4); run_hdf5 "
@@ -2702,7 +2710,7 @@ def run_files(torch, dev, stack, scan, memory_s: float, have: dict, card: str) -
         t0 = time.perf_counter()
         rc, text = speckles_cli()
         cli_s = time.perf_counter() - t0
-        res["barc4dip-cuda-speckles"] = dict(cuda_fftp.LAUNCHES)
+        res["barc4dip-cuda-speckles"] = k1_launches(cuda_fftp)
         direct = port.logbook_report(port.speckle_stats(
             pio.read_image(paths[0]), metrics="all", tiles=True, verbose=False))
         log(f"barc4dip-cuda-speckles -s frame0.edf --all, in process: {cli_s:.3f} s (counted run), "
@@ -2724,7 +2732,7 @@ def run_files(torch, dev, stack, scan, memory_s: float, have: dict, card: str) -
             t0 = time.perf_counter()
             rc = batch_cli.main([*argv, "--out", str(j), "--npz", str(z), "--report", str(r)])
             batch_s = time.perf_counter() - t0
-            res["barc4dip-cuda-batch"] = dict(cuda_fftp.LAUNCHES)
+            res["barc4dip-cuda-batch"] = k1_launches(cuda_fftp)
             summary = json.loads(j.read_text())
             dys, dxs = spiral_motion(T)
             want_r = float(np.hypot(dys[:OPT_T], dxs[:OPT_T]).max())
@@ -2873,7 +2881,7 @@ def run_mesh(torch, dev, stack, data: dict, card: str) -> dict:
             out = port.speckle_stack_stats(st, **run_kw)
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            launches = dict(cuda_fftp.LAUNCHES)
+            launches = k1_launches(cuda_fftp)
             shards = chunks * (1 if mesh is None else mesh.size)
             want = {"cols": 3 * shards, "rows": shards, "rows_ncc": 2 * shards}
             err = spiral_error(out)
@@ -2906,7 +2914,7 @@ def run_mesh(torch, dev, stack, data: dict, card: str) -> dict:
         t0 = time.perf_counter()
         outs[label] = port.sharpness_stack_stats(stack[:SHARP_T], frame_chunk=SHARP_CHUNK, mesh=mesh,
                                                  verbose=False, device=dev)
-        res[f"sharpness_stack_stats {label}"] = launches = dict(cuda_fftp.LAUNCHES)
+        res[f"sharpness_stack_stats {label}"] = launches = k1_launches(cuda_fftp)
         log(f"mesh: sharpness_stack_stats {SHARP_T} x {H}x{W} {label}: {time.perf_counter() - t0:.3f} s; "
             f"K1 launches {json.dumps(launches)}; {card}")
     worst, err, n = compare_leaves(metric_leaves(outs["2 x cuda:0"]), metric_leaves(outs["unsharded"]))
@@ -2921,7 +2929,7 @@ def run_mesh(torch, dev, stack, data: dict, card: str) -> dict:
         cuda_fftp.reset_counts()
         curves[label] = port.signal.spectral_summary_stack(stack[:SUMMARY_T], frame_chunk=SUMMARY_CHUNK,
                                                            mesh=mesh, device=dev)
-        res[f"spectral_summary_stack {label}"] = dict(cuda_fftp.LAUNCHES)
+        res[f"spectral_summary_stack {label}"] = k1_launches(cuda_fftp)
     errs = {k: leaf_rel_err(curves["2 x cuda:0"][k], curves["unsharded"][k])
             for k in ("radial_binned", "radial_interpolated")}
     n_k1a = [res[f"spectral_summary_stack {k}"]["rows"] for k in ("unsharded", "2 x cuda:0")]

@@ -25,6 +25,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _clusters(h):
+    """Pass-1 launches on the cluster route of one K1 call at ``h`` rows."""
+    return int(h > cuda_fftp.CLUSTER_ABOVE)
+
+
 def _frames(dev, n, side):
     st = speckle_stack(n, (side, side), grain_px=8.0, mean_counts=8000.0, seed=11,
                        dtype=np.uint16)
@@ -41,7 +46,7 @@ def test_corr_from_rfft_matches_plain(dev, h, w, nf):
     F = torch.fft.rfft2(a)
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(F, F[:, None], s=(h, w))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0}
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": _clusters(h)}
     want = cuda_fftp.corr_from_rfft_plain(F, F[:, None], s=(h, w))
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= ATOL_REL * float(want.abs().max())
@@ -57,7 +62,7 @@ def test_corr_from_rfft_standardized_batches_match_plain(dev, nf):
     F = torch.fft.rfft2(corrcore._precondition(_frames(dev, nf, 2048), True, True))
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(F, F[:, None], s=(2048, 2048))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0}
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": 0}
     want = cuda_fftp.corr_from_rfft_plain(F, F[:, None], s=(2048, 2048))
     torch.cuda.synchronize()
     for k in range(nf):
@@ -79,7 +84,7 @@ def test_ncc_masked_peaks_matches_plain(dev, side, nf, shared):
     kw = dict(valid_hw=(side - s + 1, side - s + 1), eps=1e-9, s=(side, side))
     cuda_fftp.reset_counts()
     maps, iy, ix = cuda_fftp.ncc_masked_peaks(prep["F"], G, var_full, en, **kw)
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 0, "rows_ncc": 1}
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 0, "rows_ncc": 1, "cols_cluster": 0}
     pmaps, piy, pix = cuda_fftp.ncc_masked_peaks_plain(prep["F"], G, var_full, en, **kw)
     torch.cuda.synchronize()
     fin = torch.isfinite(pmaps)
@@ -123,7 +128,7 @@ def test_corr_random_spectra_vs_numpy(dev, h, w, shared):
     F, G = _random_spectra(h, w, nf, 2, shared, seed=h + w)
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0}
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": _clusters(h)}
     want = _corr_ref(F, G, h, w)
     got = got.cpu().numpy()
     assert got.shape == want.shape == (nf, 2, h, w)
@@ -147,7 +152,7 @@ def _check_ncc(dev, F, G, var, en, h, w, vh, vw, eps=1e-9):
     cuda_fftp.reset_counts()
     args = [torch.from_numpy(a).to(dev) for a in (F, G, var, en)]
     maps, iy, ix = cuda_fftp.ncc_masked_peaks(*args, valid_hw=(vh, vw), eps=eps, s=(h, w))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 0, "rows_ncc": 1}
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 0, "rows_ncc": 1, "cols_cluster": _clusters(h)}
     want, wy, wx = _ncc_ref(F, G, var, en, h, w, vh, vw, eps)
     maps = maps.cpu().numpy()
     for pred in (np.isnan, np.isposinf, np.isneginf):
@@ -201,7 +206,8 @@ def test_corr_mixed_radix_vs_numpy(dev, h, w):
     F, G = _random_spectra(h, w, nf, k, True, seed=h + 3 * w)
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": _clusters(h)} \
+        and not cuda_fftp.PLAIN_BY_SHAPE
     want = _corr_ref(F, G, h, w)
     got = got.cpu().numpy()
     assert got.shape == want.shape == (nf, k, h, w)
@@ -248,7 +254,8 @@ def test_corr_cluster_route_vs_numpy(dev, h, w, shared):
     F, G = _random_spectra(h, w, nf, k, shared, seed=5 * h + w)
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": _clusters(h)} \
+        and not cuda_fftp.PLAIN_BY_SHAPE
     want = _corr_ref(F, G, h, w)
     got = got.cpu().numpy()
     assert got.shape == want.shape == (nf, k, h, w)
@@ -276,7 +283,8 @@ def test_corr_every_side_vs_numpy(dev, n):
         F, G = _random_spectra(h, w, 2, 2, True, seed=n + h)
         cuda_fftp.reset_counts()
         got = cuda_fftp.corr_from_rfft(torch.from_numpy(F).to(dev), torch.from_numpy(G).to(dev), s=(h, w))
-        assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+        assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": _clusters(h)} \
+            and not cuda_fftp.PLAIN_BY_SHAPE
         want = _corr_ref(F, G, h, w)
         assert np.abs(got.cpu().numpy() - want).max() <= ATOL_REL * np.abs(want).max(), (h, w)
 
@@ -351,7 +359,7 @@ def test_uncovered_shape_takes_plain_and_is_counted(dev):
     F = torch.fft.rfft2(a - a.mean())
     cuda_fftp.reset_counts()
     got = cuda_fftp.corr_from_rfft(F, F[:, None], s=(228, 228))
-    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}
+    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}
     assert cuda_fftp.PLAIN_BY_SHAPE == {"corr:228x228:complex64": 1}
     torch.testing.assert_close(got, cuda_fftp.corr_from_rfft_plain(F, F[:, None], s=(228, 228)))
 
@@ -367,7 +375,8 @@ def test_ncc_valid_of_one_image_launches_k1a(dev, side, tpl):
     template = frames[0, y0 : y0 + tpl, y0 : y0 + tpl]
     cuda_fftp.reset_counts()
     got = ncc.ncc_valid(frames[1], template)
-    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0} and not cuda_fftp.PLAIN_BY_SHAPE
+    assert cuda_fftp.LAUNCHES == {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": 0} \
+        and not cuda_fftp.PLAIN_BY_SHAPE
     prep = ncc.zncc_prepare_image(frames[1], tpl, tpl)
     bank = ncc.prep_template(template[None], side, side)
     numer = cuda_fftp.corr_from_rfft_plain(prep["F"], bank["Ft"], s=(side, side))
@@ -460,10 +469,10 @@ def test_ncc_sums_uncovered_geometry_is_counted(dev):
 # -- the sharpness path on the card -------------------------------------------
 
 @pytest.mark.parametrize("side, launches, plain", [
-    (2048, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
-    (512, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
-    (1536, {"cols": 1, "rows": 1, "rows_ncc": 0}, {}),
-    (1500, {"cols": 0, "rows": 0, "rows_ncc": 0}, {"corr:1500x1500:complex64": 1}),
+    (2048, {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": 0}, {}),
+    (512, {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": 0}, {}),
+    (1536, {"cols": 1, "rows": 1, "rows_ncc": 0, "cols_cluster": 0}, {}),
+    (1500, {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}, {"corr:1500x1500:complex64": 1}),
 ])
 def test_sharpness_autocorrelation_launches_k1a(dev, side, launches, plain):
     """The ``autocorrelation`` group of a CUDA frame runs its one
@@ -701,7 +710,7 @@ def test_mesh_on_one_card_leaves_the_current_device_and_matches(dev):
     assert torch.cuda.current_device() == before
     # chunks of 4 frames in two shards of 2, the tail chunk one shard of 2:
     # one K1a and two K1b a shard
-    assert cuda_fftp.LAUNCHES == {"cols": 9, "rows": 3, "rows_ncc": 6}
+    assert cuda_fftp.LAUNCHES == {"cols": 9, "rows": 3, "rows_ncc": 6, "cols_cluster": 0}
     for blk in ("abs", "inc"):
         for k in ("dx", "dy"):
             np.testing.assert_allclose(sharded["temporal"][blk][k], single["temporal"][blk][k],
@@ -739,6 +748,23 @@ def test_last_run_perf_times_the_uploads_on_the_card(dev):
     perf = dict(stack_fused.LAST_RUN_PERF)
     assert perf["resident"] is True and perf["upload_bytes"] == 0 and perf["upload_io_s"] == 0.0
     np.testing.assert_array_equal(resident["temporal"]["abs"]["dy"], host["temporal"]["abs"]["dy"])
+
+
+@pytest.mark.parametrize("side, clusters", [(4096, 3), (2048, 0)])
+def test_config_d_chunk_counts_the_cluster_route(dev, side, clusters):
+    """One chunk of Config D (4 frames, ``frame_chunk=4``): its three pass-1
+    launches (K1a of the frame, K1b of the two banks) take the cluster route
+    at 4096 rows, and none at 2048; the entry records the call's count."""
+    from barc4dip_tpu_torch import speckle_stack_stats
+    from barc4dip_tpu_torch.metrics import stack_fused
+
+    st = speckle_stack(4, (side, side), grain_px=8.0, mean_counts=8000.0, seed=11, dtype=np.uint16)
+    kw = dict(metrics="all", tiles=True, frame_chunk=4, verbose=False, device=dev)
+    cuda_fftp.reset_counts()
+    speckle_stack_stats(st, **kw)
+    assert cuda_fftp.LAUNCHES["cols"] == 3 and cuda_fftp.LAUNCHES["cols_cluster"] == clusters
+    assert stack_fused.LAST_RUN_PERF["k1_cluster_launches"] == clusters
+    assert stack_fused.LAST_RUN_PERF["frame0_s"] > 0.0
 
 
 @pytest.mark.parametrize("tensor", [False, True])

@@ -151,7 +151,7 @@ def test_cpu_tensors_never_touch_the_kernel(rng):
     cuda_fftp.reset_counts()
     F = torch.fft.rfft2(torch.from_numpy(rng.normal(size=(1, 256, 256)).astype(np.float32)))
     cuda_fftp.corr_from_rfft(F, F[:, None], s=(256, 256))
-    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}
+    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}
     assert cuda_fftp.PLAIN_BY_SHAPE == {}
 
 

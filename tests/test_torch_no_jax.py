@@ -137,7 +137,7 @@ ex04 = runpy.run_path("examples/cuda/ex_04_stack_tracking.py", run_name="example
 assert ex04["main"](None, device="cpu")["err_px"] < 0.1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "barc4dip_tpu.")) or m == "barc4dip_tpu")
 assert not bad, bad
-assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}, cuda_fftp.LAUNCHES
+assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}, cuda_fftp.LAUNCHES
 assert cuda_median.LAUNCHES == {"median3x3": 0}, cuda_median.LAUNCHES
 assert cuda_densetrack.LAUNCHES == {"ncc_sums": 0}, cuda_densetrack.LAUNCHES
 assert not (cuda_median.PLAIN_BY_SHAPE or cuda_densetrack.PLAIN_BY_SHAPE)

@@ -117,7 +117,7 @@ def test_spectral_summary_stack_tensor_uint16_and_chunk_sizes_agree(rng):
     whole = t_sig.spectral_summary_stack(stack, frame_chunk=8, **CPU)
     for k in CURVES:
         close(whole[k], host[k], 1e-6)
-    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0}  # CPU tensors: the plain version
+    assert cuda_fftp.LAUNCHES == {"cols": 0, "rows": 0, "rows_ncc": 0, "cols_cluster": 0}  # CPU tensors: the plain version
 
 
 def test_spectral_summary_stack_errors():

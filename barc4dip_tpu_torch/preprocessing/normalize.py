@@ -10,8 +10,9 @@ scale in {none, flat_mean, flat_median}, float32 output.
 Each call leaves its host split in :data:`LAST_RUN_PERF`, and marks its
 stages with spans (``utils/profiling.annotate``): ``ffc.calib`` (the copies
 of flats and darks to the device and their reduction there),
-``ffc.upload`` (the images' float32 conversion and copy to the device) and
-``k2`` (the 3x3 median repair).
+``ffc.upload`` (the images' copies to the device: a numpy input's raw
+counts a few frames at a time through ``config.upload``, cast to float32
+there) and ``k2`` (the 3x3 median repair).
 """
 from __future__ import annotations
 
@@ -31,10 +32,17 @@ __all__ = ["LAST_RUN_PERF", "flat_field_correction"]
 #: (host-clock seconds of the calibration stage: copying the flats and darks
 #: to the device in their own dtype and enqueueing their reduction),
 #: ``calib_bytes`` (the raw bytes of flats and darks), ``calib_device_frames``
-#: (the frames of stacked flats and darks reduced on a device) and
-#: ``upload_s`` (seconds converting the images to float32 and copying them to
-#: the device). Reset at the start of every call.
+#: (the frames of stacked flats and darks reduced on a device), ``upload_s``
+#: (host-clock seconds bringing the images to the device as float32) and
+#: ``upload_device_frames`` (the image frames of a numpy input brought to
+#: the device in chunks, their raw counts cast there). Reset at the start of
+#: every call.
 LAST_RUN_PERF: dict = {}
+
+#: Frames of a numpy image stack copied to the device at a time: 32 MiB of
+#: 2048² uint16, so the host pins the next chunk while this one copies and
+#: is cast there.
+UPLOAD_CHUNK_FRAMES = 4
 
 
 def _ffc(img, flat2d, dark2d, eps, *, scale: str, bad_pixel_removal: bool):
@@ -74,6 +82,26 @@ def _frame_f32(frame, device) -> torch.Tensor:
     else:
         t = upload(frame, device)
     return t.to(torch.float32)
+
+
+def _images_f32(images, device, perf) -> torch.Tensor:
+    """A numpy image or stack as float32 on ``device``, a chunk of
+    :data:`UPLOAD_CHUNK_FRAMES` frames at a time into one result allocated
+    there (an image is one chunk). Counts of 4 bytes or fewer travel in their
+    own dtype and are cast there; wider values (float64) are cast on the host
+    a chunk at a time, so float32 bytes travel. Every cast is exact or rounds
+    to nearest even: the result is ``np.array(images, dtype=np.float32)``'s
+    bit for bit."""
+    arr = np.asarray(images)
+    stack = arr.reshape(-1, *arr.shape[-2:])
+    out = torch.empty(stack.shape, dtype=torch.float32, device=device)
+    for t in range(0, stack.shape[0], UPLOAD_CHUNK_FRAMES):
+        chunk = stack[t:t + UPLOAD_CHUNK_FRAMES]
+        if chunk.dtype.itemsize > 4:
+            chunk = chunk.astype(np.float32)
+        out[t:t + UPLOAD_CHUNK_FRAMES] = _frame_f32(chunk, device)
+    perf["upload_device_frames"] += stack.shape[0]
+    return out.reshape(arr.shape)
 
 
 def _calibration(arr, device, perf) -> torch.Tensor | None:
@@ -137,7 +165,7 @@ def flat_field_correction(
     t0 = time.perf_counter()
     perf = LAST_RUN_PERF
     perf.clear()
-    perf.update(calib_s=0.0, calib_bytes=0, calib_device_frames=0, upload_s=0.0)
+    perf.update(calib_s=0.0, calib_bytes=0, calib_device_frames=0, upload_s=0.0, upload_device_frames=0)
     if scale not in {"none", "flat_mean", "flat_median"}:
         raise ValueError(f"Invalid scale option: {scale}")
     if images.ndim not in {2, 3}:
@@ -164,11 +192,13 @@ def flat_field_correction(
 
     tu = time.perf_counter()
     with annotate("ffc.upload"):
+        calibrated = flat is not None or dark is not None
         if device_in:
             img = images.to(torch.float32)
+        elif calibrated:
+            img = _images_f32(images, device, perf)
         else:
             img = torch.from_numpy(np.array(images, dtype=np.float32))
-        calibrated = flat is not None or dark is not None
         if calibrated:
             img = img.to(device)
             if dark is None:

@@ -1,6 +1,7 @@
 # SPDX-License-Identifier: CECILL-2.1
 """The flat-field's stacked flats and darks reduced on the card from their
-raw counts. Marked ``cuda``: they skip where no card is present. On the
+raw counts, and numpy images sent there as raw counts in chunks and cast
+there. Marked ``cuda``: they skip where no card is present. On the
 card (the module imports nothing of JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda_flatfield.py -q
@@ -22,14 +23,14 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _raw(seed=8):
-    """Four images, 10 flats and 10 darks as uint16 counts, a few dead pixels."""
+def _raw(seed=8, frames=4):
+    """``frames`` images, 10 flats and 10 darks as uint16 counts, a few dead pixels."""
     rng = np.random.default_rng(seed)
     gain = rng.normal(2.0, 0.1, size=(SIDE, SIDE))
     flats = np.round(gain * 10000.0 + 100.0 + rng.normal(0, 30, size=(10, SIDE, SIDE)))
     flats[:, rng.random((SIDE, SIDE)) < 0.001] = 90.0  # flat <= dark: a dead pixel
     darks = np.round(100.0 + rng.normal(0, 2, size=(10, SIDE, SIDE)))
-    images = rng.poisson(800.0, size=(4, SIDE, SIDE)) * gain + 100.0
+    images = rng.poisson(800.0, size=(frames, SIDE, SIDE)) * gain + 100.0
     return images.astype(np.uint16), flats.astype(np.uint16), darks.astype(np.uint16)
 
 
@@ -55,3 +56,29 @@ def test_card_means_are_the_host_float32_means_bit_for_bit(dev):
     got = normalize.flat_field_correction(raw, flats=flats, darks=darks, **kw)
     want = normalize.flat_field_correction(raw, flats=_host_mean(flats), darks=_host_mean(darks), **kw)
     np.testing.assert_array_equal(got, want)
+
+
+def test_numpy_stack_equals_its_card_float32_twin_in_no_more_memory(dev):
+    frames = 2 * normalize.UPLOAD_CHUNK_FRAMES + 1  # a short last chunk
+    raw, flats, darks = _raw(seed=10, frames=frames)
+    kw = dict(flats=flats, darks=darks, bad_pixel_removal=True, as_numpy=False, device=dev)
+    normalize.flat_field_correction(raw, **kw)  # warm: kernels, plans and constants cached on the card
+    torch.cuda.synchronize(dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = normalize.flat_field_correction(raw, **kw)
+    torch.cuda.synchronize(dev)
+    peak_numpy = torch.cuda.max_memory_allocated(dev)
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == frames
+    got = got.cpu()
+
+    twin = torch.from_numpy(raw.astype(np.float32)).to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    want = normalize.flat_field_correction(twin, **kw)
+    torch.cuda.synchronize(dev)
+    peak_twin = torch.cuda.max_memory_allocated(dev)
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == 0
+    assert torch.equal(got, want.cpu())
+    chunk_f32 = normalize.UPLOAD_CHUNK_FRAMES * SIDE * SIDE * 4
+    assert peak_numpy <= peak_twin + chunk_f32, (peak_numpy, peak_twin)

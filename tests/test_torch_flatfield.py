@@ -17,6 +17,7 @@ from barc4dip_tpu.utils import dtype as jax_dtype
 from barc4dip_tpu.utils import range as jax_range
 from barc4dip_tpu_torch.ops import cuda_median
 from barc4dip_tpu_torch.preprocessing import flat_field_correction as torch_ffc
+from barc4dip_tpu_torch.preprocessing import normalize
 from barc4dip_tpu_torch.utils import dtype as t_dtype
 from barc4dip_tpu_torch.utils import range as t_range
 
@@ -140,6 +141,38 @@ def test_stacked_calibration_equals_its_host_float32_means(kind, which):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
     else:  # integer counts sum exactly: the quotient is the host's mean bit for bit
         np.testing.assert_array_equal(got, want)
+
+
+def _images_as(raw, dtype):
+    """``raw``'s counts in ``dtype``; the float ones off the integer grid, so
+    the float64 -> float32 cast rounds."""
+    if dtype.kind == "f":
+        return (raw * 1.0007 + 0.3).astype(dtype)
+    return raw.astype(dtype)
+
+
+@pytest.mark.parametrize("bad_pixel_removal", [False, True])
+@pytest.mark.parametrize("frames", [None, 4, 7])  # None: one 2D image; 7 is no multiple of the chunk
+@pytest.mark.parametrize("dtype", ["<u2", ">u2", "<i2", "<f4", "<f8"])
+def test_numpy_images_equal_their_host_float32_copy(dtype, frames, bad_pixel_removal):
+    assert 7 % normalize.UPLOAD_CHUNK_FRAMES != 0
+    rng = np.random.default_rng(12)
+    _, flats, darks, _ = _calibration(seed=12)
+    gain = rng.normal(2.0, 0.1, size=(SIDE, SIDE))
+    raw = rng.poisson(800.0, size=(frames or 1, SIDE, SIDE)) * gain + 100.0
+    images = _images_as(raw if frames else raw[0], np.dtype(dtype))
+    kw = dict(flats=flats, darks=darks, bad_pixel_removal=bad_pixel_removal)
+    got = flat_field_correction(images, **kw)
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == (frames or 1)
+    want = flat_field_correction(np.array(images, dtype=np.float32), **kw)
+    assert got.dtype == np.float32 and got.shape == images.shape
+    assert got.tobytes() == want.tobytes()
+
+    twin = flat_field_correction(torch.from_numpy(np.array(images, dtype=np.float32)), **kw)
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == 0  # reset; a tensor input is not uploaded
+    assert twin.numpy().tobytes() == got.tobytes()
+    flat_field_correction(images)  # uncalibrated: the host copy, nothing brought to a device
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == 0
 
 
 def _range_inputs():

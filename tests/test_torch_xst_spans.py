@@ -1,8 +1,9 @@
 # SPDX-License-Identifier: CECILL-2.1
 """The XST path's spans and counters, read from a CPU ``torch.profiler``
 Chrome trace: the flat-field's ``ffc.calib`` (with ``config.upload``'s
-``upload`` inside it, one a raw flat or dark frame), ``ffc.upload`` and
-``k2`` inside ``entry.flat_field_correction``; the wavefront scan's
+``upload`` inside it, one a raw flat or dark frame), ``ffc.upload`` (with an
+``upload`` inside it for each chunk of the images) and ``k2`` inside
+``entry.flat_field_correction``; the wavefront scan's
 ``entry.track_displacement_stack``, ``xst.batch`` (one a batch), ``k3`` (one
 a K3 call), ``pull.wait`` (one a batch) and ``xst.integrate`` inside
 ``entry.wavefront_scan``; ``normalize.LAST_RUN_PERF`` and
@@ -57,30 +58,33 @@ def _spans(tmp_path):
     return spans, out
 
 
-#: span -> (its parent, how many a scan holds)
+#: the images' chunks: the reference is one, the T-frame stack T / 4 rounded up
+IMAGE_CHUNKS = 1 + -(-T // normalize.UPLOAD_CHUNK_FRAMES)
+
+#: (span, its parent) -> how many a scan holds
 EXPECTED = {
-    "entry.flat_field_correction": (None, 2),
-    "ffc.calib": ("entry.flat_field_correction", 2),
-    "upload": ("ffc.calib", 2 * (FLATS.shape[0] + DARKS.shape[0])),  # one a raw flat or dark frame
-    "ffc.upload": ("entry.flat_field_correction", 2),
-    "k2": ("entry.flat_field_correction", 2),
-    "entry.wavefront_scan": (None, 1),
-    "entry.track_displacement_stack": ("entry.wavefront_scan", 1),
-    "xst.batch": ("entry.track_displacement_stack", BATCHES),
-    "k3": ("xst.batch", BATCHES),
-    "pull.wait": ("entry.track_displacement_stack", BATCHES),
-    "xst.integrate": ("entry.wavefront_scan", 1),
+    ("entry.flat_field_correction", None): 2,
+    ("ffc.calib", "entry.flat_field_correction"): 2,
+    ("upload", "ffc.calib"): 2 * (FLATS.shape[0] + DARKS.shape[0]),  # one a raw flat or dark frame
+    ("ffc.upload", "entry.flat_field_correction"): 2,
+    ("upload", "ffc.upload"): IMAGE_CHUNKS,  # one a chunk of raw image frames
+    ("k2", "entry.flat_field_correction"): 2,
+    ("entry.wavefront_scan", None): 1,
+    ("entry.track_displacement_stack", "entry.wavefront_scan"): 1,
+    ("xst.batch", "entry.track_displacement_stack"): BATCHES,
+    ("k3", "xst.batch"): BATCHES,
+    ("pull.wait", "entry.track_displacement_stack"): BATCHES,
+    ("xst.integrate", "entry.wavefront_scan"): 1,
 }
 
 
 def test_each_span_nests_in_its_entry_once_a_call_or_batch(tmp_path):
+    assert T % normalize.UPLOAD_CHUNK_FRAMES != 0  # a short last chunk
     spans, _ = _spans(tmp_path)
-    names = [name for _, _, name, _ in spans]
-    assert set(names) == set(EXPECTED)
-    for name, (parent, count) in EXPECTED.items():
-        assert names.count(name) == count, name
-    for _, _, name, parent in spans:
-        assert parent == EXPECTED[name][0], (name, parent)
+    pairs = [(name, parent) for _, _, name, parent in spans]
+    assert set(pairs) == set(EXPECTED)
+    for pair, count in EXPECTED.items():
+        assert pairs.count(pair) == count, pair
     roots = [(s, e) for s, e, _, parent in spans if parent is None]
     for s, e, name, parent in spans:
         if parent is not None:
@@ -90,12 +94,16 @@ def test_each_span_nests_in_its_entry_once_a_call_or_batch(tmp_path):
 def test_counters_are_reset_for_each_call_and_carry_their_keys():
     normalize.flat_field_correction(RAW, flats=FLATS, darks=DARKS, device="cpu")
     perf = dict(normalize.LAST_RUN_PERF)
-    assert set(perf) == {"calib_s", "calib_bytes", "calib_device_frames", "upload_s"}
+    assert set(perf) == {"calib_s", "calib_bytes", "calib_device_frames", "upload_s", "upload_device_frames"}
     assert perf["calib_bytes"] == FLATS.nbytes + DARKS.nbytes and perf["calib_s"] > 0 and perf["upload_s"] > 0
     assert perf["calib_device_frames"] == FLATS.shape[0] + DARKS.shape[0]
-    normalize.flat_field_correction(RAW, flats=FLATS[0], device="cpu")
+    assert perf["upload_device_frames"] == RAW.shape[0]
+    normalize.flat_field_correction(RAW[0], flats=FLATS[0], device="cpu")
     assert normalize.LAST_RUN_PERF["calib_bytes"] == FLATS[0].nbytes
     assert normalize.LAST_RUN_PERF["calib_device_frames"] == 0
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == 1
+    normalize.flat_field_correction(torch.from_numpy(RAW), flats=FLATS[0], device="cpu")
+    assert normalize.LAST_RUN_PERF["upload_device_frames"] == 0
 
     scan()
     perf = dict(xst.LAST_RUN_PERF)

@@ -298,9 +298,13 @@ def tiled_scalar_fields(
 def _loader(stack, device):
     """``load(c0, c1)``: frames [c0, c1) of a host stack uploaded to
     ``device`` (:func:`..config.upload`), or of a tensor stack moved there
-    (a no-op on its own device) and cast there, as a compute-dtype tensor."""
+    (a no-op on its own device) and cast there, as a compute-dtype tensor,
+    under a ``load.resident`` span."""
     if isinstance(stack, torch.Tensor):
-        return lambda c0, c1: to_compute(stack[c0:c1].to(device))
+        def load(c0, c1):
+            with annotate("load.resident"):
+                return to_compute(stack[c0:c1].to(device))
+        return load
     return lambda c0, c1: upload(stack[c0:c1], device)
 
 
@@ -417,7 +421,9 @@ def run_chunks(stack, step, *, frame_chunk: int = 4, mesh=None, checkpoint=None,
     (host seconds from each load's end to its pull's enqueue),
     ``pull_wait_s`` (waiting for and unpacking the pulls: the device time
     shows here), ``upload_bytes`` (in the frames' own dtype),
-    ``pull_bytes``, ``chunks`` (run, not loaded), ``resident: True`` for a
+    ``pull_bytes``, ``chunks`` (run, not loaded), ``resident_frames`` (the
+    frames the chunks loaded from a tensor stack: T a call unless chunks
+    came from ``checkpoint``; 0 for a host stack), ``resident: True`` for a
     tensor stack."""
     placements = shard_loaders(stack, device, mesh)
     T = int(stack.shape[0])
@@ -425,7 +431,7 @@ def run_chunks(stack, step, *, frame_chunk: int = 4, mesh=None, checkpoint=None,
     resident = isinstance(stack, torch.Tensor)
     frame_bytes = 0 if resident else math.prod(stack.shape[1:]) * np.dtype(stack.dtype).itemsize
     record = {"upload_s": 0.0, "dispatch_s": 0.0, "pull_wait_s": 0.0, "upload_bytes": 0, "pull_bytes": 0,
-              "chunks": 0}
+              "chunks": 0, "resident_frames": 0}
     if resident:
         record["resident"] = True
     copies: dict = {}  # device -> [(start, end)]: CUDA events around each host-stack load
@@ -463,7 +469,9 @@ def run_chunks(stack, step, *, frame_chunk: int = 4, mesh=None, checkpoint=None,
                 if timed_copy:
                     ev[1].record(torch.cuda.current_stream(dev))
                     copies.setdefault(dev, []).append(ev)
-                if not resident:
+                if resident:
+                    record["resident_frames"] += b - a
+                else:
                     record["upload_s"] += t1 - t0
                     record["upload_bytes"] += (b - a) * frame_bytes
                 with annotate("chunk.enqueue"):  # one vector per shard leaves the device

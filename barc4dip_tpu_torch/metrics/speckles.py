@@ -341,10 +341,13 @@ def tracking_grid_from_frame0(
     (grid_slices, grid_labels, roi_side, step, grain0).
 
     Frame 0 is sized on the CPU, in float32 unless the stack is float64,
-    as the JAX package does, so ``roi_side`` comes out identical."""
+    as the JAX package does, so ``roi_side`` comes out identical. A tensor
+    stack's frame 0 comes to the host under a ``frame0.pull`` span: on a
+    card the copy waits for the work queued before it."""
     T, H, W = (int(s) for s in stack.shape)
     if isinstance(stack, torch.Tensor):
-        frame0 = to_compute(stack[0]).cpu()
+        with annotate("frame0.pull"):
+            frame0 = to_compute(stack[0]).cpu()
     else:
         frame0 = torch.from_numpy(
             np.asarray(stack[0], np.float64 if stack.dtype == np.float64 else np.float32)

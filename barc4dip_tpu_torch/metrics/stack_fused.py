@@ -46,8 +46,9 @@ __all__ = ["LAST_RUN_PERF", "device_compute_probe", "run_fused_speckle_stack"]
 #: chunk loop's record (:func:`.common.run_chunks`), with the JAX package's
 #: keys ``upload_s``, ``upload_io_s``, ``dispatch_s`` (here the metric and
 #: tracking steps' enqueue and the result pull), ``pull_wait_s``,
-#: ``upload_bytes``, ``pull_bytes``, ``chunks`` and ``resident: True`` for a
-#: tensor stack; and how the metric step ran (``speckles_device.GRAPH_COUNTS``
+#: ``upload_bytes``, ``pull_bytes``, ``chunks``, ``resident_frames`` (frames
+#: loaded from a tensor stack, 0 for a host stack) and ``resident: True`` for
+#: a tensor stack; and how the metric step ran (``speckles_device.GRAPH_COUNTS``
 #: over the run): ``graph_replays`` (shards replayed as CUDA graphs),
 #: ``graph_captures`` (keys captured, in a shard that is also replayed) and
 #: ``eager_steps`` (shards run eagerly: every shard off a card, and on a

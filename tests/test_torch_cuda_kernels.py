@@ -750,6 +750,55 @@ def test_last_run_perf_times_the_uploads_on_the_card(dev):
     np.testing.assert_array_equal(resident["temporal"]["abs"]["dy"], host["temporal"]["abs"]["dy"])
 
 
+def test_a_float32_stack_on_the_card_is_resident_and_replayed(dev):
+    """Config D on an 8-frame 2048^2 float32 CUDA stack (whole counts plus a
+    uniform offset, as calibrated frames): nothing uploaded, every frame
+    loaded from the card, the float32 key of the metric step captured once in
+    the first call and only replayed in the second, and every leaf and a lazy
+    grain map equal to the same call on the host copy."""
+    import barc4dip_tpu_torch as port
+    from barc4dip_tpu_torch.metrics import speckles_device, stack_fused
+
+    counts = speckle_stack(8, (2048, 2048), grain_px=8.0, mean_counts=8000.0, seed=11, dtype=np.uint16)
+    host = counts.astype(np.float32) + np.random.default_rng(3).uniform(-0.5, 0.5, counts.shape).astype(np.float32)
+    stack = torch.from_numpy(host).to(dev)
+    kw = dict(metrics="all", tiles=True, frame_chunk=4, verbose=False)
+    graph_keys = ("graph_replays", "graph_captures", "eager_steps")
+    torch.cuda.synchronize()
+    speckles_device._SEEN.clear()
+    speckles_device._GRAPHED.clear()
+    try:
+        perfs = []
+        for _ in range(2):
+            out = port.speckle_stack_stats(stack, **kw)
+            perfs.append(dict(stack_fused.LAST_RUN_PERF))
+        want = port.speckle_stack_stats(host, device=dev, **kw)
+    finally:
+        torch.cuda.synchronize()
+        speckles_device._SEEN.clear()
+        speckles_device._GRAPHED.clear()
+    for perf in perfs:
+        assert perf["resident"] is True and perf["resident_frames"] == 8
+        assert perf["upload_bytes"] == 0 and perf["upload_s"] == 0.0 and perf["upload_io_s"] == 0.0
+    # chunks of 4: the first sights the key, the second captures and replays it
+    assert [perfs[0][k] for k in graph_keys] == [1, 1, 1]
+    assert [perfs[1][k] for k in graph_keys] == [2, 0, 0]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            elif isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                yield f"{prefix}{k}", v
+
+    for sec in ("full", "tiles", "temporal"):
+        a, b = dict(leaves(out[sec])), dict(leaves(want[sec]))
+        assert a.keys() == b.keys() and a
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{sec}/{k}")
+    np.testing.assert_array_equal(out["full"]["grain"]["autocorr"][5], want["full"]["grain"]["autocorr"][5])
+
+
 @pytest.mark.parametrize("side, clusters", [(4096, 3), (2048, 0)])
 def test_config_d_chunk_counts_the_cluster_route(dev, side, clusters):
     """One chunk of Config D (4 frames, ``frame_chunk=4``): its three pass-1

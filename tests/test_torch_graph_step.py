@@ -264,8 +264,9 @@ def test_a_stack_captures_once_and_replays_the_rest(dev, fresh_graphs):
         counts.append(({k: perf[k] for k in GRAPH_KEYS}, dict(cuda_fftp.LAUNCHES)))
     assert counts[0][0] == {"graph_replays": 24, "graph_captures": 1, "eager_steps": 1}
     assert counts[1][0] == {"graph_replays": 25, "graph_captures": 0, "eager_steps": 0}
-    # K1a on each chunk's frames, K1b on its two banks: every call, replayed or not
-    assert counts[0][1] == counts[1][1] == {"cols": 75, "rows": 25, "rows_ncc": 50}
+    # K1a on each chunk's frames, K1b on its two banks: every call, replayed or not;
+    # 512 rows never take pass 1's cluster route
+    assert counts[0][1] == counts[1][1] == {"cols": 75, "rows": 25, "rows_ncc": 50, "cols_cluster": 0}
 
 
 @pytest.mark.cuda

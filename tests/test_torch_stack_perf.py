@@ -35,6 +35,7 @@ KW = dict(metrics="all", tiles=False, verbose=False, frame_chunk=2, grain_maps=F
 JAX_KEYS = {"upload_s", "dispatch_s", "pull_wait_s", "upload_io_s", "upload_bytes", "pull_bytes", "chunks"}
 GRAPH_KEYS = {"graph_replays", "graph_captures", "eager_steps"}
 ENTRY_KEYS = {"frame0_s", "k1_cluster_launches"}
+LOOP_KEYS = {"resident_frames"}  # the port's chunk loop's own
 PROBE = dict(groups={"amplitude", "stats"}, mode="off", sat=65535.0, eps=1e-12, flip=True)
 
 
@@ -84,11 +85,11 @@ def test_host_run_records_the_jax_keys_and_its_uploads(spiral_stack, host_run):
     jm.speckle_stack_stats(spiral_stack, **KW)
     _, perf = host_run
     assert set(j_fused.LAST_RUN_PERF) == JAX_KEYS
-    assert set(perf) == JAX_KEYS | GRAPH_KEYS | ENTRY_KEYS
+    assert set(perf) == JAX_KEYS | LOOP_KEYS | GRAPH_KEYS | ENTRY_KEYS
     T, H, W = spiral_stack.shape
     assert perf["chunks"] == len(chunk_layout_signature(T, 2)) == 4
     assert perf["eager_steps"] == 4 and perf["graph_replays"] == perf["graph_captures"] == 0
-    assert perf["upload_bytes"] == spiral_stack.nbytes
+    assert perf["upload_bytes"] == spiral_stack.nbytes and perf["resident_frames"] == 0
     assert perf["upload_io_s"] == perf["upload_s"] > 0.0  # no card: the host's time
     assert perf["dispatch_s"] > 0.0 and perf["pull_wait_s"] >= 0.0
     # T rows of float32 columns: the packed vectors of every chunk
@@ -106,9 +107,10 @@ def test_tensor_run_is_resident_with_no_upload(spiral_stack, host_run):
     out = tm.speckle_stack_stats(torch.from_numpy(spiral_stack), **KW)
     perf = dict(stack_fused.LAST_RUN_PERF)
     assert perf.pop("resident") is True
-    assert set(perf) == JAX_KEYS | GRAPH_KEYS | ENTRY_KEYS
+    assert set(perf) == JAX_KEYS | LOOP_KEYS | GRAPH_KEYS | ENTRY_KEYS
     assert perf["upload_bytes"] == 0 and perf["upload_s"] == 0.0 and perf["upload_io_s"] == 0.0
     assert perf["chunks"] == 4 and perf["pull_bytes"] == host_run[1]["pull_bytes"]
+    assert perf["resident_frames"] == spiral_stack.shape[0]
     _assert_same_outputs(out, host_run[0])
 
 
@@ -117,7 +119,7 @@ def test_resumed_checkpoint_runs_no_chunk(spiral_stack, host_run, tmp_path):
     assert stack_fused.LAST_RUN_PERF["chunks"] == 4
     again = tm.speckle_stack_stats(spiral_stack, device="cpu", checkpoint_dir=tmp_path, **KW)
     perf = stack_fused.LAST_RUN_PERF
-    assert set(perf) == JAX_KEYS | GRAPH_KEYS | ENTRY_KEYS
+    assert set(perf) == JAX_KEYS | LOOP_KEYS | GRAPH_KEYS | ENTRY_KEYS
     assert perf["chunks"] == 0 and perf["upload_bytes"] == 0 and perf["pull_bytes"] == 0
     assert perf["eager_steps"] == perf["graph_replays"] == perf["graph_captures"] == 0
     _assert_same_outputs(first, host_run[0])
